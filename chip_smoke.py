@@ -9,8 +9,10 @@ exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi), then the build
    of every kernel from `mxnet_tpu_torch/csrc` (nvcc, sm_90a).
 2. kernels: each CUDA kernel against its plain PyTorch version at the
-   serving path's own shapes (bf16) plus ragged cases, with the stated
-   tolerance; kernel, plain and library (yardstick only: the port never
+   serving path's own shapes (bf16) plus ragged cases, every element
+   within its own stated tolerance; at the main shapes, attention made
+   off by one at the key length or the diagonal must fall outside it;
+   kernel, plain and library (yardstick only: the port never
    calls it) times with a cold L2, and the least time the card could
    take for the same work.
 3. serve: Llama-3-8B at full width (vocab 32000, D 4096, I 14336, 32
@@ -100,6 +102,85 @@ def max_err(out, ref):
     return float((out.float() - ref.float()).abs().max())
 
 
+# Element-wise tolerances, each term with its reason:
+# - BF16_STEP: bf16 keeps 8 significant bits, so two fp32 results that
+#   agree to fp32 noise round to the same or to adjacent bf16 values, and
+#   adjacent values differ by at most 2^-7 of either: one step of |ref|.
+# - BF16_ROUND: rounding a value to bf16 moves it by at most 2^-8 of it.
+# - FP32_NOISE: two fp32 computations of one attention row (another sum
+#   order over d products per score and over the keys, another exp)
+#   differ by far less than 2^-14 of the row's sum of p * |v|.
+BF16_STEP, BF16_ROUND, FP32_NOISE = 2.0 ** -7, 2.0 ** -8, 2.0 ** -14
+
+
+def held(torch, label, out, ref, tol):
+    """Every element within its own tolerance: |out - ref| <= tol.
+    Returns (max_abs_err, text)."""
+    diff = (out.float() - ref.float()).abs()
+    over = int((diff > tol).sum())
+    err = float(diff.max())
+    check(bool(torch.isfinite(out).all()) and over == 0,
+          f"{label}: {over} elements beyond their tolerance "
+          f"(max_abs_err {err}, largest excess "
+          f"{float((diff - tol).max())})")
+    return err, f"max_abs_err={err:.3g}, every element within tol " \
+                f"(largest tol {float(tol.max()):.3g})"
+
+
+def caught(torch, label, wrong, ref, tol):
+    """A kernel with an off-by-one mask would have failed `held`: some
+    element of its output lies beyond its tolerance."""
+    over = int(((wrong.float() - ref.float()).abs() > tol).sum())
+    check(over > 0, f"{label}: an off-by-one output passes the tolerance")
+    return f"{label} caught ({over} elements over tol)"
+
+
+def attn_probs(torch, q, k, scale, lengths, causal, diag=0):
+    """fp32 softmax probabilities (B, H, T, S) of q (B, T, H, d) over
+    k (B, S, K, d): key s is kept where s < lengths[b] and, if causal,
+    s <= t + diag; a row with no kept key is all 0."""
+    B, T, H, _ = q.shape
+    S, K = k.shape[1], k.shape[2]
+    s = torch.einsum("bthd,bshd->bhts", q.float(),
+                     k.float().repeat_interleave(H // K, dim=2)) * scale
+    j = torch.arange(S, device=q.device)
+    keep = (j[None, :] < lengths[:, None].long())[:, None, None, :]
+    if causal:
+        t = torch.arange(T, device=q.device)
+        keep = keep & (j[None, :] <= t[:, None] + diag)[None, None]
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.where(keep.any(dim=-1, keepdim=True), p, 0.0)
+
+
+def attn_apply(torch, p, v, H):
+    """(B, T, H, d) fp32: probabilities (B, H, T, S) applied to v
+    (B, S, K, d), and to |v| (the scale of the row's rounding terms)."""
+    vf = v.float().repeat_interleave(H // v.shape[2], dim=2)
+    return (torch.einsum("bhts,bshd->bthd", p, vf),
+            torch.einsum("bhts,bshd->bthd", p, vf.abs()))
+
+
+def decode_probs(torch, q, k_cache, valid_len, scale):
+    """fp32 probabilities (B, K, rep, S) of q (B, H, d) over a gathered
+    (B, K, S, d) cache, keys masked at valid_len; an empty row is 0."""
+    B, H, d = q.shape
+    K, S = k_cache.shape[1], k_cache.shape[2]
+    s = torch.einsum("bkrd,bksd->bkrs", q.reshape(B, K, H // K, d).float(),
+                     k_cache.float()) * scale
+    keep = (torch.arange(S, device=q.device)[None, :]
+            < valid_len[:, None].long())[:, None, None, :]
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.where(keep.any(dim=-1, keepdim=True), p, 0.0)
+
+
+def decode_apply(torch, p, v_cache):
+    """(B, H, d) fp32: probabilities applied to the cache and to |v|."""
+    B, K, rep, _ = p.shape
+    vf = v_cache.float()
+    return tuple(torch.einsum("bkrs,bksd->bkrd", p, w).reshape(B, K * rep, -1)
+                 for w in (vf, vf.abs()))
+
+
 # -- phase 2: kernels against their plain versions --------------------------
 
 def kernel_rmsnorm(torch, F, flush):
@@ -115,28 +196,23 @@ def kernel_rmsnorm(torch, F, flush):
         g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         out, ref = rmsnorm(x, g, eps), rmsnorm_ref(x, g, eps)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
-        # both compute fp32 statistics and round once; only the sum
-        # order differs: one rounding step of the output dtype
-        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
-        tol = ulp * float(ref.float().abs().max())
-        check(math.isfinite(err) and err <= tol,
-              f"rmsnorm {label}: max_abs_err {err} > tol {tol}")
+        # both compute x * rrms * gamma in fp32 and differ only in the sum
+        # order of the statistics (a few fp32 steps, under 2^-19
+        # relative): one bf16 step of |ref|, or 2^-19 of it in fp32
+        rtol = BF16_STEP if dtype == torch.bfloat16 else 2.0 ** -19
+        err, text = held(torch, f"rmsnorm {label}", out, ref,
+                         rtol * ref.float().abs())
         line = f"[kernels] rmsnorm {label} {tuple(x.shape)} {dtype}: " \
-               f"max_abs_err={err:.3g} tol={tol:.3g}"
+               f"{text}, rtol {rtol:.3g}"
         if label in ("prefill", "decode"):
             ms = cold_ms(torch, lambda: rmsnorm(x, g, eps), flush)
             plain = cold_ms(torch, lambda: rmsnorm_ref(x, g, eps), flush)
-            lib = None
-            if hasattr(F, "rms_norm"):
-                gx = g.to(dtype)
-                lib = cold_ms(torch, lambda: F.rms_norm(x, (d,), gx, eps),
-                              flush)
+            gx = g.to(dtype)
+            lib = cold_ms(torch, lambda: F.rms_norm(x, (d,), gx, eps), flush)
             b_ms, b_by = bound(2 * x.numel() * x.element_size() + d * 4,
                                4 * x.numel(), "fp32")
             line += f" ms={ms:.4f} plain_ms={plain:.4f} library_ms=" \
-                    f"{lib if lib is None else round(lib, 4)} " \
-                    f"bound_ms={b_ms:.4f} ({b_by})"
+                    f"{lib:.4f} bound_ms={b_ms:.4f} ({b_by})"
             if label == "prefill":
                 entry = dict(name="rmsnorm", max_abs_err=err, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=b_ms,
@@ -162,18 +238,34 @@ def kernel_flash_prefill(torch, F, flush, main_len):
         out = flash_attention_forward(q, k, v, True, scale, lengths)
         ref = reference_attention(q, k, v, True, scale, lengths)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
-        # the plain version rounds P to bf16 before P @ V (as the JAX
-        # reference does), the kernel keeps P in fp32, and both round the
-        # output once: under 2^-7 of max|v|; fp32 differs by sum order
-        vmax = float(v.float().abs().max())
-        tol = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * vmax
-        check(math.isfinite(err) and err <= tol,
-              f"flash_prefill {label}: max_abs_err {err} > tol {tol}")
+        # the plain version rounds P to bf16 before P @ V, as the JAX
+        # reference does (one rounding of each p: 2^-8 of the row's sum
+        # of p * |v|), the kernel keeps P in fp32, and each rounds its
+        # output once (one bf16 step of |ref|); fp32 differs by noise
+        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
+                                                 lengths, True), v, H)
+        if dtype == torch.bfloat16:
+            tol = BF16_STEP * ref.float().abs() \
+                + (BF16_ROUND + FP32_NOISE) * pv_abs
+        else:
+            tol = FP32_NOISE * pv_abs
+        err, text = held(torch, f"flash_prefill {label}", out, ref, tol)
         line = f"[kernels] flash_prefill {label} B={B} T={T} H={H} K={K} " \
-               f"d={d} lengths={lens} {dtype}: max_abs_err={err:.3g} " \
-               f"tol={tol:.3g}"
+               f"d={d} lengths={lens} {dtype}: {text}"
         if label == "main":
+            # a kernel off by one at the key length or at the diagonal
+            # would fail the same tolerance
+            wrongs = [("lengths-1", lengths - 1, 0),
+                      ("diagonal-1", lengths, -1),
+                      ("diagonal+1", lengths, 1)]
+            if lens[0] < T:
+                wrongs.append(("lengths+1", lengths + 1, 0))
+            line += "; off by one: " + ", ".join(
+                caught(torch, f"flash_prefill {name}",
+                       attn_apply(torch, attn_probs(torch, q, k, scale, ln,
+                                                    True, dg), v, H)[0]
+                       .to(dtype), ref, tol)
+                for name, ln, dg in wrongs)
             ms = cold_ms(torch, lambda: flash_attention_forward(
                 q, k, v, True, scale, lengths), flush, reps=10)
             plain = cold_ms(torch, lambda: reference_attention(
@@ -182,17 +274,8 @@ def kernel_flash_prefill(torch, F, flush, main_len):
             t = torch.arange(T, device="cuda")
             mask = (t[None, :] <= t[:, None]) & (t[None, :] < L)
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            try:
-                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               enable_gqa=True)
-                lib_fn = lambda: F.scaled_dot_product_attention(  # noqa
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            except TypeError:        # torch without enable_gqa
-                kr = kt.repeat_interleave(H // K, dim=1)
-                vr = vt.repeat_interleave(H // K, dim=1)
-                lib_fn = lambda: F.scaled_dot_product_attention(  # noqa
-                    qt, kr, vr, attn_mask=mask)
-            lib = cold_ms(torch, lib_fn, flush, reps=10)
+            lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), flush, reps=10)
             # this run's work: each query row t attends min(t + 1, L)
             # keys; K/V rows past L are never needed
             pairs = sum(min(i + 1, L) for i in range(T))
@@ -238,37 +321,37 @@ def kernel_paged_decode(torch, F, flush):
         out = flash_decode_paged(q, kp, vp, bt_t, vl_t, scale)
         ref = reference_paged_decode(q, kp, vp, bt_t, vl_t, scale)
         torch.cuda.synchronize()
-        err = max_err(out, ref)
-        # the plain version works in fp32 throughout; both round the
-        # output once (bf16) or differ by sum order (fp32)
-        vmax = float(vp.float().abs().max())
-        tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * vmax
-        check(math.isfinite(err) and err <= tol,
-              f"paged_decode {label}: max_abs_err {err} > tol {tol}")
+        # the plain version works in fp32 throughout: both round the
+        # output once (one bf16 step of |ref|) or differ by fp32 noise
+        kc, vc = gather_kv_pages(kp, bt_t), gather_kv_pages(vp, bt_t)
+        _, pv_abs = decode_apply(torch, decode_probs(torch, q, kc, vl_t,
+                                                     scale), vc)
+        tol = FP32_NOISE * pv_abs
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * ref.float().abs()
+        err, text = held(torch, f"paged_decode {label}", out, ref, tol)
         line = f"[kernels] paged_decode {label} B={B} H={H} K={K} d={d} " \
-               f"bs={bs} valid_len={list(map(int, vls))} {dtype}: " \
-               f"max_abs_err={err:.3g} tol={tol:.3g}"
+               f"bs={bs} valid_len={list(map(int, vls))} {dtype}: {text}"
         if label == "main":
+            # a kernel that stops one token early or reads one too many
+            # (past valid_len, into the rest of the block or block 0)
+            # would fail the same tolerance
+            line += "; off by one: " + ", ".join(
+                caught(torch, f"paged_decode {name}",
+                       decode_apply(torch, decode_probs(
+                           torch, q, kc, vl_t + dv, scale), vc)[0]
+                       .to(dtype), ref, tol)
+                for name, dv in (("valid_len-1", -1), ("valid_len+1", 1)))
             ms = cold_ms(torch, lambda: flash_decode_paged(
                 q, kp, vp, bt_t, vl_t, scale), flush)
             plain = cold_ms(torch, lambda: reference_paged_decode(
                 q, kp, vp, bt_t, vl_t, scale), flush)
-            kc, vc = gather_kv_pages(kp, bt_t), gather_kv_pages(vp, bt_t)
             S = kc.shape[2]
             mask = (torch.arange(S, device="cuda")[None, :]
                     < vl_t[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
-            try:
-                F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
-                                               enable_gqa=True)
-                lib_fn = lambda: F.scaled_dot_product_attention(  # noqa
-                    q4, kc, vc, attn_mask=mask, enable_gqa=True)
-            except TypeError:        # torch without enable_gqa
-                kr = kc.repeat_interleave(H // K, dim=1)
-                vr = vc.repeat_interleave(H // K, dim=1)
-                lib_fn = lambda: F.scaled_dot_product_attention(  # noqa
-                    q4, kr, vr, attn_mask=mask)
-            lib = cold_ms(torch, lib_fn, flush)
+            lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kc, vc, attn_mask=mask, enable_gqa=True), flush)
             tokens = int(np.sum(vls))
             nbytes = (2 * q.numel() + 2 * tokens * K * d) * q.element_size() \
                 + bt.nbytes + 4 * B
@@ -505,9 +588,18 @@ def main() -> int:
 
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         main_len = int(np.random.RandomState(SEED).randint(33, MAX_PROMPT + 1))
-        entries = [kernel_rmsnorm(torch, F, flush),
-                   kernel_flash_prefill(torch, F, flush, main_len),
-                   kernel_paged_decode(torch, F, flush)]
+        # the plain prefill's bf16 P @ V must accumulate in fp32, as its
+        # tolerance assumes: no bf16 split-K reductions while it is held
+        # against the kernel
+        matmul = torch.backends.cuda.matmul
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            entries = [kernel_rmsnorm(torch, F, flush),
+                       kernel_flash_prefill(torch, F, flush, main_len),
+                       kernel_paged_decode(torch, F, flush)]
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
         del flush
         torch.cuda.empty_cache()
         counts = serve(torch, F)
@@ -523,6 +615,8 @@ def main() -> int:
             "paged_decode": ("mxtt_paged_decode",
                              "mxnet_tpu_torch/csrc/paged_decode.cu",
                              "mxnet_tpu/kernels/flash_decode.py:307")}
+    # the TPU kernel and the error are read under two names each
+    # (replaces/tpu_kernel, max_abs_err/max_err): one value, both keys
     kernels = []
     for e in entries:
         sym, src, tpu = meta[e["name"]]

@@ -227,16 +227,10 @@ int dispatch_dim(int D, void* out, const void* q, const void* k,
                  const void* v, const int* lengths, int B, int seq, int H,
                  int K, int causal, float scale, cudaStream_t s) {
   switch (D) {
-    case 16:
+    case 16:   // llama_tiny
       return launch<T, 16>(out, q, k, v, lengths, B, seq, H, K, causal,
                            scale, s);
-    case 32:
-      return launch<T, 32>(out, q, k, v, lengths, B, seq, H, K, causal,
-                           scale, s);
-    case 64:
-      return launch<T, 64>(out, q, k, v, lengths, B, seq, H, K, causal,
-                           scale, s);
-    case 128:
+    case 128:  // Llama-3-8B
       return launch<T, 128>(out, q, k, v, lengths, B, seq, H, K, causal,
                             scale, s);
     default:

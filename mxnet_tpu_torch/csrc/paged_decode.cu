@@ -204,16 +204,10 @@ int dispatch_dim(int D, void* out, const void* q, const void* kp,
                  const void* vp, const int* bt, const int* valid_len, int B,
                  int H, int K, int bs, int nb, float scale, cudaStream_t s) {
   switch (D) {
-    case 16:
+    case 16:   // llama_tiny
       return launch<T, 16>(out, q, kp, vp, bt, valid_len, B, H, K, bs, nb,
                            scale, s);
-    case 32:
-      return launch<T, 32>(out, q, kp, vp, bt, valid_len, B, H, K, bs, nb,
-                           scale, s);
-    case 64:
-      return launch<T, 64>(out, q, kp, vp, bt, valid_len, B, H, K, bs, nb,
-                           scale, s);
-    case 128:
+    case 128:  // Llama-3-8B
       return launch<T, 128>(out, q, kp, vp, bt, valid_len, B, H, K, bs, nb,
                             scale, s);
     default:

@@ -20,9 +20,9 @@
 
 namespace {
 
-template <typename T, typename G>
+template <typename T>
 __global__ void rmsnorm_kernel(T* __restrict__ out, const T* __restrict__ x,
-                               const G* __restrict__ gamma, int dim,
+                               const float* __restrict__ gamma, int dim,
                                float eps) {
   __shared__ float partial[32];
   const T* xr = x + (int64_t)blockIdx.x * dim;
@@ -44,38 +44,34 @@ __global__ void rmsnorm_kernel(T* __restrict__ out, const T* __restrict__ x,
   __syncthreads();
   const float rrms = 1.0f / sqrtf(partial[0] / (float)dim + eps);
   for (int i = threadIdx.x; i < dim; i += blockDim.x) {
-    orow[i] = from_float<T>(to_float(xr[i]) * rrms * to_float(gamma[i]));
+    orow[i] = from_float<T>(to_float(xr[i]) * rrms * gamma[i]);
   }
 }
 
-template <typename T, typename G>
-int launch(void* out, const void* x, const void* gamma, int64_t rows, int dim,
-           float eps, cudaStream_t stream) {
+template <typename T>
+int launch(void* out, const void* x, const float* gamma, int64_t rows,
+           int dim, float eps, cudaStream_t stream) {
   // a warp per row for narrow rows, up to 512 threads for the 4096-wide
   // Llama rows (8 elements a thread)
   int threads = 32;
   while (threads < 512 && threads * 8 < dim) threads *= 2;
-  rmsnorm_kernel<T, G><<<(unsigned)rows, threads, 0, stream>>>(
-      (T*)out, (const T*)x, (const G*)gamma, dim, eps);
+  rmsnorm_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
+      (T*)out, (const T*)x, gamma, dim, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mxtt_rmsnorm(void* out, const void* x, const void* gamma,
+// gamma is float32 whatever x's dtype, as the model keeps its norm gains
+extern "C" int mxtt_rmsnorm(void* out, const void* x, const float* gamma,
                             int64_t rows, int dim, float eps, int x_dtype,
-                            int g_dtype, void* stream) {
+                            void* stream) {
   if (rows <= 0) return 0;
   if (rows > 0x7fffffff || dim <= 0) return MXTT_BAD_ARGUMENT;
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_dtype == MXTT_F32 && g_dtype == MXTT_F32)
-    return launch<float, float>(out, x, gamma, rows, dim, eps, s);
-  if (x_dtype == MXTT_BF16 && g_dtype == MXTT_F32)
-    return launch<__nv_bfloat16, float>(out, x, gamma, rows, dim, eps, s);
-  if (x_dtype == MXTT_BF16 && g_dtype == MXTT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(out, x, gamma, rows, dim,
-                                                eps, s);
-  if (x_dtype == MXTT_F32 && g_dtype == MXTT_BF16)
-    return launch<float, __nv_bfloat16>(out, x, gamma, rows, dim, eps, s);
+  if (x_dtype == MXTT_F32)
+    return launch<float>(out, x, gamma, rows, dim, eps, s);
+  if (x_dtype == MXTT_BF16)
+    return launch<__nv_bfloat16>(out, x, gamma, rows, dim, eps, s);
   return MXTT_BAD_ARGUMENT;
 }

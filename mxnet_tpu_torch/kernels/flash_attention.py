@@ -6,7 +6,7 @@ Counterpart of `mxnet_tpu/kernels/flash_attention.py`
 (B, T, H, d), k/v (B, T, K, d) with H % K == 0, out (B, T, H, d).
 `lengths` (B,) masks key positions >= lengths[b]. A CPU tensor takes
 `reference_attention`; a CUDA tensor launches the kernel (any T,
-d in {16, 32, 64, 128}, float32 or bfloat16) or raises.
+d in {16, 128}, float32 or bfloat16) or raises.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ _KERNEL = _build.CudaKernel("mxtt_flash_prefill", [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p])
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims of the supported configs (llama_tiny, Llama-3-8B)
+HEAD_DIMS = (16, 128)
 
 
 def reference_attention(q, k, v, causal=True, scale=None, lengths=None):

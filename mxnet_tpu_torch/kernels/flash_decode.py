@@ -27,7 +27,8 @@ _KERNEL = _build.CudaKernel("mxtt_paged_decode", [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p])
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims of the supported configs (llama_tiny, Llama-3-8B)
+HEAD_DIMS = (16, 128)
 #: the kernel's threads own rep * d <= 1024 outputs of one kv head
 MAX_REP_DIM = 1024
 

@@ -18,8 +18,7 @@ __all__ = ["rmsnorm", "rmsnorm_ref"]
 
 _KERNEL = _build.CudaKernel("mxtt_rmsnorm", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float):
@@ -30,11 +29,13 @@ def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float):
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float):
-    """RMSNorm over the trailing axis of x (..., D) with gain (D,)."""
+    """RMSNorm over the trailing axis of x (..., D) with a float32 gain
+    (D,), as the model keeps its norm gains."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, gamma, eps)
     _build.check_cuda_tensor(x, "x", x.device)
-    _build.check_cuda_tensor(gamma, "gamma", x.device, ndim=1)
+    _build.check_cuda_tensor(gamma, "gamma", x.device,
+                             dtypes=(torch.float32,), ndim=1)
     D = x.shape[-1]
     if gamma.shape[0] != D:
         raise ValueError(f"gamma has {gamma.shape[0]} entries for rows of {D}")
@@ -42,6 +43,5 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float):
     with torch.cuda.device(x.device):
         _KERNEL(out.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                 x.numel() // D if D else 0, D, float(eps),
-                _build.dtype_code(x), _build.dtype_code(gamma),
-                _build.stream_handle(x.device))
+                _build.dtype_code(x), _build.stream_handle(x.device))
     return out

@@ -3,8 +3,9 @@ in-flight sequence (counterpart of `mxnet_tpu/serving/kv_cache.py`
 without its prefix cache, host tier or int8 pools).
 
 The pool per layer is {"k", "v"} of (N, K, bs, d) in the model dtype, on
-the serving device; a sequence holds ceil(len / bs) blocks, listed in
-its slot's row of `block_tables` (physical ids in logical order). The
+the serving device (`cuda` unless `device="cpu"` is asked for); a
+sequence holds ceil(len / bs) blocks, listed in its slot's row of
+`block_tables` (physical ids in logical order). The
 decode kernel reads through that table. The prefill and decode tick
 write new rows into the pool in place (serving/executables.py).
 
@@ -23,6 +24,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ..context import resolve_device
+
 __all__ = ["PagedKVCache"]
 
 
@@ -32,10 +35,11 @@ class PagedKVCache:
     def __init__(self, *, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, batch_slots: int,
                  max_blocks_per_seq: int, dtype=torch.float32,
-                 device="cpu"):
+                 device=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved scratch block)")
+        device = resolve_device(device)
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim

@@ -49,13 +49,16 @@ def test_package_imports_with_jax_blocked():
 def test_entry_points_refuse_cpu_fallback_without_cuda(monkeypatch):
     from mxnet_tpu_torch.context import resolve_device
     from mxnet_tpu_torch.models import get_model
-    from mxnet_tpu_torch.serving import InferenceServer
+    from mxnet_tpu_torch.serving import InferenceServer, PagedKVCache
     net = get_model("llama_tiny", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceServer(net)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model("llama_tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(num_layers=1, num_kv_heads=1, head_dim=8, num_blocks=2,
+                     block_size=4, batch_slots=1, max_blocks_per_seq=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -117,7 +117,8 @@ def test_kv_cache_pools_and_validation():
     assert tc.can_alloc(12) and not tc.can_alloc(13 * 4)
     with pytest.raises(ValueError, match="scratch"):
         PagedKVCache(num_layers=1, num_kv_heads=1, head_dim=8, num_blocks=1,
-                     block_size=4, batch_slots=1, max_blocks_per_seq=1)
+                     block_size=4, batch_slots=1, max_blocks_per_seq=1,
+                     device=CPU)
     with pytest.raises(ValueError, match="max_blocks_per_seq"):
         tc.alloc(0, 13)
     assert tc.alloc(0, 4)
