@@ -9,23 +9,35 @@ exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi), then the build
    of every kernel from `mxnet_tpu_torch/csrc` (nvcc, sm_90a).
 2. kernels: each CUDA kernel against its plain PyTorch version at the
-   serving path's own shapes (bf16) plus ragged cases, every element
-   within its own stated tolerance; at the main shapes, attention made
-   off by one at the key length or the diagonal must fall outside it;
-   kernel, plain and library (yardstick only: the port never
+   serving and generation paths' own shapes (bf16) plus ragged cases,
+   every element within its own stated tolerance; at the main shapes,
+   attention made off by one at the key length or the diagonal must fall
+   outside it; kernel, plain and library (yardstick only: the port never
    calls it) times with a cold L2, and the least time the card could
-   take for the same work.
+   take for the same work. The int8 decode kernels read caches quantized
+   from rows whose magnitudes vary by token.
 3. serve: Llama-3-8B at full width (vocab 32000, D 4096, I 14336, 32
    layers, 32 heads / 8 kv heads, bf16; random weights from a seed)
    behind `InferenceServer(batch_slots=8, block_size=16, max_len=2048,
    max_prompt_len=512)`: 16 requests of 33-512 prompt tokens, 32 new
    tokens each, greedy plus top-k/top-p rows. Every kernel's launch
-   count over that run must be > 0 (RMSNorm 65 per forward, prefill 32
-   per request, decode 32 per tick); request 0's prefill is re-run with
-   the plain versions and the last-position logits compared. Then a
-   steady decode tick's wall time and the card's busy time in it, by
-   kernel family (torch.profiler).
-4. the kernels line (JSON), the card line, and the result line
+   count over that run must equal its expected count (RMSNorm 65 per
+   forward, prefill 32 per request, decode 32 per tick, 0 for the
+   others); request 0's prefill is re-run with the plain versions and
+   the last-position logits compared. Then a steady decode tick's wall
+   time and the card's busy time in it, by kernel family
+   (torch.profiler). Then the same 16 requests through a server with
+   an int8 pool (`kv_cache_dtype="int8"`): the int8 paged kernel 32
+   times per tick, the bf16 one never, each greedy request's first token
+   equal to the bf16 server's.
+4. generate: `generate()` on the same net, 8 prompts right-padded to
+   512 (valid_len 33-512), 32 greedy tokens, with a bf16 and with an
+   int8 cache: exact launch counts (contiguous decode 32 per step), the
+   same first token in every row, and 32 teacher-forced steps of both
+   caches within max(2%, twice the bf16 path's own deviation from an
+   fp32 copy of the net) relative logit difference; then `generate_beam` on
+   two prompts (beam_size 4, 8 new tokens). Tokens/s of each run.
+5. the kernels line (JSON), the card line, and the result line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -367,6 +379,139 @@ def kernel_paged_decode(torch, F, flush):
     return entry
 
 
+#: the decode kernels of slice 2: (paged, int8 cache)
+DECODE_KERNELS = {"contig_decode": (False, False),
+                  "contig_decode_q8": (False, True),
+                  "paged_decode_q8": (True, True)}
+
+
+def cache_rows(torch, gen, shape, dtype, spread):
+    """Normal rows, each token's row scaled by e^(spread z): per-token
+    magnitudes (and so int8 scales) that differ by orders."""
+    mag = torch.exp(spread * torch.randn(*shape[:-1], 1, generator=gen,
+                                         device="cuda"))
+    return (torch.randn(*shape, generator=gen, device="cuda") * mag).to(dtype)
+
+
+def kernel_decode(torch, F, flush, name):
+    """One of the slice-2 decode kernels against its plain version: the
+    contiguous (B, K, S, d) cache at generate()'s shapes (8 prompts of up
+    to 512 tokens + 32 new), or the served int8 pool geometry (bs 16,
+    max_len 2048, shuffled tables). int8 caches come from quantize_kv of
+    bf16 rows whose magnitudes vary by token (k over e^0.5, v over e^1.5),
+    so the per-token scales, which fold into the scores (k) and into p
+    before P.V (v) but not into the running sum, differ by orders."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    paged, q8 = DECODE_KERNELS[name]
+    kern, plain = {
+        "contig_decode": (fd.flash_decode, fd.reference_decode_attention),
+        "contig_decode_q8": (fd.flash_decode_quantized,
+                             fd.reference_decode_quantized),
+        "paged_decode_q8": (fd.flash_decode_paged_quantized,
+                            fd.reference_paged_decode_quantized)}[name]
+    seed = SEED + 3 + list(DECODE_KERNELS).index(name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    bf16, f32 = torch.bfloat16, torch.float32
+    if paged:
+        main_vl = rs.randint(33, MAX_PROMPT + NEW_TOKENS + 1, BATCH_SLOTS)
+        cases = (("main", 32, 8, 128, BLOCK_SIZE, MAX_LEN, main_vl, bf16),
+                 ("block 8", 32, 8, 128, 8, 256, [1, 77, 256], bf16),
+                 ("tiny fp32", 4, 2, 16, 8, 64, [1, 13, 64], f32))
+    else:
+        S = MAX_PROMPT + NEW_TOKENS
+        main_vl = rs.randint(33, S + 1, BATCH_SLOTS)
+        cases = (("main", 32, 8, 128, None, S, main_vl, bf16),
+                 ("ragged", 32, 8, 128, None, 333, [1, 200, 333], bf16),
+                 ("tiny fp32", 4, 2, 16, None, 77, [1, 13, 77], f32))
+    entry = None
+    for label, H, K, d, bs, S, vls, dtype in cases:
+        B = len(vls)
+        q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+        shape = (B * (S // bs) + 1, K, bs, d) if paged else (B, K, S, d)
+        k = cache_rows(torch, gen, shape, dtype, 0.5)
+        v = cache_rows(torch, gen, shape, dtype, 1.5)
+        vl_t = torch.tensor(np.asarray(vls, np.int32)).cuda()
+        tables = ()
+        if paged:
+            # shuffled physical blocks; entries past valid_len stay at
+            # the scratch block 0
+            nb = S // bs
+            bt = np.zeros((B, nb), np.int32)
+            ids = 1 + rs.permutation(shape[0] - 1)
+            for b, vl in enumerate(vls):
+                nblk = -(-int(vl) // bs)
+                bt[b, :nblk] = ids[b * nb:b * nb + nblk]
+            tables = (torch.from_numpy(bt).cuda(),)
+        if q8:
+            ops = fd.quantize_kv(k, v)
+            kd, vd = (fd.dequantize_kv(ops[i], ops[i + 1], f32)
+                      for i in (0, 2))
+        else:
+            ops, (kd, vd) = (k, v), (k, v)
+        if paged:
+            kd, vd = (fd.gather_kv_pages(t, tables[0]) for t in (kd, vd))
+        scale = 1.0 / math.sqrt(d)
+        args = ops + tables + (vl_t, scale)
+        out, ref = kern(q, *args), plain(q, *args)
+        torch.cuda.synchronize()
+        # the plain version dequantizes to fp32 and works in fp32
+        # throughout: both round the output once (one bf16 step of |ref|)
+        # or differ by fp32 noise of the row's sum of p * |v| (v
+        # dequantized)
+        _, pv_abs = decode_apply(torch, decode_probs(torch, q, kd, vl_t,
+                                                     scale), vd)
+        tol = FP32_NOISE * pv_abs
+        if dtype == bf16:
+            tol = tol + BF16_STEP * ref.float().abs()
+        err, text = held(torch, f"{name} {label}", out, ref, tol)
+        line = f"[kernels] {name} {label} B={B} H={H} K={K} d={d} " \
+               f"{f'bs={bs} max_len' if paged else 'S'}={S} " \
+               f"valid_len={list(map(int, vls))} {dtype}: {text}"
+        if label == "main":
+            # a kernel that stops one token early or reads one too many
+            # would fail the same tolerance
+            line += "; off by one: " + ", ".join(
+                caught(torch, f"{name} {wrong}",
+                       decode_apply(torch, decode_probs(
+                           torch, q, kd, vl_t + dv, scale), vd)[0]
+                       .to(dtype), ref, tol)
+                for wrong, dv in (("valid_len-1", -1), ("valid_len+1", 1)))
+            ms = cold_ms(torch, lambda: kern(q, *args), flush)
+            plain_ms = cold_ms(torch, lambda: plain(q, *args), flush)
+            # yardstick: SDPA over the (gathered, dequantized) cache in
+            # the model dtype; the gather and the dequantize are not timed
+            kl, vl_ = kd.to(dtype), vd.to(dtype)
+            mask = (torch.arange(kl.shape[2], device="cuda")[None, :]
+                    < vl_t[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kl, vl_, attn_mask=mask, enable_gqa=True), flush)
+            tokens = int(np.sum(vls))
+            # each valid token's k and v rows once (int8: codes plus one
+            # fp32 scale each), q read and out written once, the table
+            # and valid_len
+            row = 2 * (d + 4) if q8 else 2 * d * q.element_size()
+            nbytes = tokens * K * row + 2 * q.numel() * q.element_size() \
+                + sum(t.numel() * 4 for t in tables) + 4 * B
+            b_ms, b_by = bound(nbytes, tokens * H * 4 * d, "bf16")
+            line += f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=" \
+                    f"{lib:.4f} (SDPA over the " \
+                    f"{'gathered, ' if paged else ''}" \
+                    f"{'dequantized ' if q8 else ''}cache; " \
+                    f"{'gather and dequantize ' if q8 else ''}not timed) " \
+                    f"bound_ms={b_ms:.4f} ({b_by})"
+            entry = dict(name=name, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by,
+                         shape=f"B=8 H=32 K=8 d=128 "
+                               f"{'bs=16 ' if paged else f'S={S} '}"
+                               f"sum(valid_len)={tokens} bf16"
+                               f"{' q, int8 cache' if q8 else ''}")
+        print(line, flush=True)
+    return entry
+
+
 # -- phase 3: serve ------------------------------------------------------------
 
 def plain_prefill_logits(torch, F, net, prompt, dtype):
@@ -434,8 +579,9 @@ def tick_breakdown(torch, server, prompts):
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         name = ev.key.lower()
-        key = next((k for k in ("paged_decode", "rmsnorm") if k in name),
-                   None)
+        key = next((k for part, k in (("decode_attention", "paged_decode"),
+                                      ("rmsnorm", "rmsnorm"))
+                    if part in name), None)
         if key is None:
             key = "gemm" if any(w in name for w in (
                 "gemm", "nvjet", "cutlass", "xmma")) else "other"
@@ -454,10 +600,8 @@ def tick_breakdown(torch, server, prompts):
               f"recorded no device time)", flush=True)
 
 
-def serve(torch, F):
-    from mxnet_tpu_torch.kernels import _build
+def load_net(torch):
     from mxnet_tpu_torch.models import get_model
-    from mxnet_tpu_torch.serving import InferenceServer
 
     t0 = time.perf_counter()
     net = get_model("llama_3_8b", device="cuda")    # seed 0, std 0.02
@@ -469,14 +613,30 @@ def serve(torch, F):
           f"cut) heads={cfg.num_heads}/{cfg.num_kv_heads} {cfg.dtype}: "
           f"{n_params / 1e9:.2f} B random parameters in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    server = InferenceServer(net, batch_slots=BATCH_SLOTS,
-                             block_size=BLOCK_SIZE, max_len=MAX_LEN,
-                             max_prompt_len=MAX_PROMPT)
-    pool_gb = sum(t.numel() * t.element_size() for pg in server.cache.pages
-                  for t in pg.values()) / 1e9
     rs = np.random.RandomState(SEED)
     prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(33, MAX_PROMPT + 1)))
                for _ in range(N_REQUESTS)]
+    return net, prompts
+
+
+def expect_launches(counts, expect, label):
+    """Every kernel's launch count over one run equals its expected count
+    (0 for the kernels the run must not reach)."""
+    expect = {sym: expect.get(sym, 0) for sym in counts}
+    print(f"[{label}] launches {counts} expected {expect}", flush=True)
+    for sym, n in expect.items():
+        check(counts[sym] == n,
+              f"{label}: {sym}: {counts[sym]} launches, expected {n}")
+
+
+def served_run(torch, server, prompts, label):
+    """The 16 requests through `server`, counted from zero: greedy rows
+    plus every fourth row sampled. Returns (requests, launch counts,
+    prefills, ticks)."""
+    from mxnet_tpu_torch.kernels import _build
+    cfg = server.cfg
+    pool_gb = sum(t.numel() * t.element_size() for pg in server.cache.pages
+                  for t in pg.values()) / 1e9
     # warm-up (cuBLAS handles, allocator) outside the counted run
     server.submit(prompts[0][:8], max_new_tokens=2)
     server.run()
@@ -507,20 +667,30 @@ def serve(torch, F):
         check(all(0 <= t < cfg.vocab_size for t in r.output_tokens),
               f"request {r.id}: token out of range")
     ttft = sorted(r.ttft for r in reqs)
-    print(f"[serve] {N_REQUESTS} requests (prompts {min(map(len, prompts))}"
+    print(f"[{label}] {N_REQUESTS} requests (prompts {min(map(len, prompts))}"
           f"-{max(map(len, prompts))} tokens, {NEW_TOKENS} new each, "
           f"{sum(1 for i in range(N_REQUESTS) if i % 4 == 3)} sampled), "
+          f"kv_cache_dtype {server.kv_cache_dtype}, "
           f"pool {pool_gb:.2f} GB: {n_tok} tokens in {wall:.2f} s = "
           f"{n_tok / wall:.1f} tokens/s, {ticks} ticks, {prefills} "
           f"prefills, TTFT p50 {ttft[len(ttft) // 2]:.3f} s, "
           f"preemptions {server.preemptions}", flush=True)
-    expect = {"mxtt_rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
-              "mxtt_flash_prefill": cfg.num_layers * prefills,
-              "mxtt_paged_decode": cfg.num_layers * ticks}
-    print(f"[serve] launches {counts} expected {expect}", flush=True)
-    for sym, n in expect.items():
-        check(counts.get(sym, 0) > 0 and counts[sym] == n,
-              f"{sym}: {counts.get(sym, 0)} launches, expected {n}")
+    return reqs, counts, prefills, ticks
+
+
+def serve(torch, F, net, prompts):
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    cfg = net.cfg
+    server = InferenceServer(net, batch_slots=BATCH_SLOTS,
+                             block_size=BLOCK_SIZE, max_len=MAX_LEN,
+                             max_prompt_len=MAX_PROMPT)
+    reqs, counts, prefills, ticks = served_run(torch, server, prompts,
+                                               "serve")
+    expect_launches(counts, {
+        "mxtt_rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
+        "mxtt_flash_prefill": cfg.num_layers * prefills,
+        "mxtt_paged_decode": cfg.num_layers * ticks}, "serve")
 
     # request 0's prefill: kernel path (scratch block table, so the pool
     # is untouched) against the plain versions on the unpadded prompt
@@ -552,7 +722,167 @@ def serve(torch, F):
           f"kernel/plain/fp32 {int(kern.float().argmax())}/"
           f"{int(plain.float().argmax())}/{int(truth.argmax())}", flush=True)
     tick_breakdown(torch, server, prompts)
+    return counts, [r.output_tokens[0] for r in reqs]
+
+
+def serve_int8(torch, net, prompts, first_bf16):
+    """The same 16 requests through an int8-pool server of the same
+    geometry: every request ok, the int8 paged kernel and never the bf16
+    one, and each greedy request's first token equal to the bf16
+    server's (it comes from the prefill logits, which read no pool)."""
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    cfg = net.cfg
+    server = InferenceServer(net, batch_slots=BATCH_SLOTS,
+                             block_size=BLOCK_SIZE, max_len=MAX_LEN,
+                             max_prompt_len=MAX_PROMPT, kv_cache_dtype="int8")
+    reqs, counts, prefills, ticks = served_run(torch, server, prompts,
+                                               "serve int8")
+    expect_launches(counts, {
+        "mxtt_rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
+        "mxtt_flash_prefill": cfg.num_layers * prefills,
+        "mxtt_paged_decode_q8": cfg.num_layers * ticks}, "serve int8")
+    greedy = [i for i in range(N_REQUESTS) if i % 4 != 3]
+    same = [reqs[i].output_tokens[0] == first_bf16[i] for i in greedy]
+    check(all(same), f"serve int8: first tokens differ from the bf16 "
+                     f"server's in requests "
+                     f"{[i for i, ok in zip(greedy, same) if not ok]}")
+    print(f"[serve int8] first token of all {len(greedy)} greedy requests "
+          f"equal to the bf16 server's", flush=True)
     return counts
+
+
+# -- phase 4: generate ---------------------------------------------------------
+
+def teacher_forced(net, kv, ids, valid_len, toks):
+    """fp32 logits (B, V) of each step of `net`'s contiguous-cache decoder
+    with `kv` cache, prefilled with `ids` and fed `toks` (B, steps)."""
+    from mxnet_tpu_torch.models.llama_infer import _params_tree
+    from mxnet_tpu_torch.serving.executables import decoder_programs
+
+    dec = decoder_programs(net, ids.shape[1] + toks.shape[1], kv)
+    params = _params_tree(net)
+    cache, _ = dec["prefill"](params, ids, valid_len)
+    out = []
+    for j in range(toks.shape[1]):
+        cache, logits = dec["step"](params, cache, valid_len.long() + j,
+                                    toks[:, j])
+        out.append(logits.float())
+    return out
+
+
+def max_rel_dev(ref, other):
+    """The JAX package's drift statistic (test_llama_infer.py): the
+    largest per-step max|a - b| / max|a| over a run of steps."""
+    return max(float((a - b).abs().max() / a.abs().max())
+               for a, b in zip(ref, other))
+
+
+def generate_phase(torch, net, prompts):
+    """Contiguous-cache generate() on the 8B net: 8 prompts right-padded
+    to 512 with ragged valid_len, 32 greedy tokens with a bf16 and with an
+    int8 cache; exact launch counts; the first tokens agree (prefill
+    logits); 32 teacher-forced steps of both caches within max(2%, twice
+    the bf16 path's deviation from fp32) relative logit difference (the
+    JAX package's statistic, test_llama_infer.py); then generate_beam on
+    two prompts. Returns the launch counts of the bf16,
+    int8 and beam runs."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import generate, generate_beam
+    from mxnet_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = net.cfg
+    L, per_fwd = cfg.num_layers, 2 * cfg.num_layers + 1
+    B, T, new = BATCH_SLOTS, MAX_PROMPT, NEW_TOKENS
+    ids = np.zeros((B, T), np.int64)
+    vl = np.asarray([len(p) for p in prompts[:B]], np.int32)
+    for b, p in enumerate(prompts[:B]):
+        ids[b, :len(p)] = p
+    generate(net, ids[:, :8], 2)             # warm-up outside the counts
+    runs, outs = {}, {}
+    for kv, sym in (("model", "mxtt_contig_decode"),
+                    ("int8", "mxtt_contig_decode_q8")):
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(net, ids, new, valid_len=vl, kv_cache_dtype=kv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[kv] = counts = _build.launch_counts()
+        check(out.shape == (B, T + new) and (out[:, :T] == ids).all(),
+              f"generate {kv}: output shape {out.shape} or prompt changed")
+        check(((out >= 0) & (out < cfg.vocab_size)).all(),
+              f"generate {kv}: token out of range")
+        outs[kv] = out
+        print(f"[generate] kv_cache_dtype {kv}: B={B} prompts right-padded "
+              f"to {T} (valid_len {vl.min()}-{vl.max()}), {new} greedy "
+              f"tokens each: {B * new} tokens in {wall:.2f} s = "
+              f"{B * new / wall:.1f} tokens/s", flush=True)
+        expect_launches(counts, {"mxtt_rmsnorm": per_fwd * (1 + new),
+                                 "mxtt_flash_prefill": L,
+                                 sym: L * new}, f"generate {kv}")
+    first = outs["model"][:, T] == outs["int8"][:, T]
+    check(first.all(), f"generate: first tokens differ between the bf16 "
+                       f"and int8 caches in rows {np.where(~first)[0]}")
+    agree = float((outs["model"][:, T:] == outs["int8"][:, T:]).mean())
+    print(f"[generate] first token equal in all {B} rows between the bf16 "
+          f"and int8 caches; {100 * agree:.1f}% of all generated tokens "
+          f"equal (free-running: one near-tie flips the rest of a row)",
+          flush=True)
+
+    # teacher forcing: the bf16 cache, the int8 cache, and an fp32 copy
+    # of the net with an fp32 cache (exact arithmetic, to measure the
+    # bf16 path's own error), all fed the bf16 run's tokens
+    net32 = LlamaForCausalLM(LlamaConfig(dtype="float32"), device="cuda")
+    with torch.no_grad():
+        for p, p32 in zip(net.parameters(), net32.parameters()):
+            p32.copy_(p)
+    toks = torch.from_numpy(outs["model"][:, T:]).cuda().long()
+    ids_t, vl_t = torch.from_numpy(ids).cuda(), torch.from_numpy(vl).cuda()
+    lg = {name: teacher_forced(n, kv, ids_t, vl_t, toks)
+          for name, (n, kv) in (("bf16", (net, "model")),
+                                ("int8", (net, "int8")),
+                                ("fp32", (net32, "model")))}
+    del net32
+    torch.cuda.empty_cache()
+    dev_q8 = max_rel_dev(lg["bf16"], lg["int8"])
+    floor = max_rel_dev(lg["fp32"], lg["bf16"])
+    # the JAX package bounds dev_q8 by 2% on its 2-layer fp32 llama_tiny,
+    # where arithmetic adds nothing; at full width the random 32-layer net
+    # amplifies any perturbation, and bf16 arithmetic alone moves its
+    # logits by `floor` from exact. An int8 cache whose folds or scales
+    # were wrong moves them by O(1); a right one by the order of `floor`.
+    tol = max(0.02, 2 * floor)
+    check(dev_q8 <= tol, f"generate: int8 teacher-forced logits differ by "
+                         f"{dev_q8:.4f} relative (> {tol:.4f})")
+    print(f"[generate] teacher-forced {new} steps, max relative logit "
+          f"difference (max|a-b| / max|a| per step): int8 vs bf16 cache "
+          f"{dev_q8:.5f}, tol {tol:.5f} = max(0.02, 2 x bf16 vs fp32 "
+          f"{floor:.5f}); int8 (bf16 net) vs fp32 "
+          f"{max_rel_dev(lg['fp32'], lg['int8']):.5f}", flush=True)
+
+    # beam search on two prompts of one length
+    W, new_b = 4, 8
+    Tb = min(len(prompts[0]), len(prompts[1]))
+    beam_ids = np.stack([prompts[0][:Tb], prompts[1][:Tb]])
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate_beam(net, beam_ids, new_b, beam_size=W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["beam"] = counts = _build.launch_counts()
+    check(out.shape == (2, Tb + new_b)
+          and ((out >= 0) & (out < cfg.vocab_size)).all(),
+          f"generate_beam: shape {out.shape} or token out of range")
+    print(f"[generate] generate_beam 2 prompts of {Tb} tokens, beam_size "
+          f"{W}, {new_b} new: {2 * new_b} tokens in {wall:.2f} s = "
+          f"{2 * new_b / wall:.1f} tokens/s", flush=True)
+    expect_launches(counts, {"mxtt_rmsnorm": per_fwd * new_b,
+                             "mxtt_flash_prefill": L,
+                             "mxtt_contig_decode": L * (new_b - 1)},
+                    "generate_beam")
+    return runs
 
 
 def main() -> int:
@@ -598,31 +928,51 @@ def main() -> int:
             entries = [kernel_rmsnorm(torch, F, flush),
                        kernel_flash_prefill(torch, F, flush, main_len),
                        kernel_paged_decode(torch, F, flush)]
+            entries += [kernel_decode(torch, F, flush, name)
+                        for name in DECODE_KERNELS]
         finally:
             matmul.allow_bf16_reduced_precision_reduction = reduced
         del flush
         torch.cuda.empty_cache()
-        counts = serve(torch, F)
+        net, prompts = load_net(torch)
+        counts, first_bf16 = serve(torch, F, net, prompts)
+        torch.cuda.empty_cache()
+        counts_q8 = serve_int8(torch, net, prompts, first_bf16)
+        torch.cuda.empty_cache()
+        gen_counts = generate_phase(torch, net, prompts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    decode_src = "mxnet_tpu_torch/csrc/decode_attention.cu"
+    # (symbol, source, TPU kernel's pallas_call, the main-path run whose
+    # launch count the line reports)
     meta = {"rmsnorm": ("mxtt_rmsnorm", "mxnet_tpu_torch/csrc/rmsnorm.cu",
-                        "mxnet_tpu/kernels/fused_norm.py:91"),
+                        "mxnet_tpu/kernels/fused_norm.py:91", counts),
             "flash_prefill": ("mxtt_flash_prefill",
                               "mxnet_tpu_torch/csrc/flash_prefill.cu",
-                              "mxnet_tpu/kernels/flash_attention.py:188"),
-            "paged_decode": ("mxtt_paged_decode",
-                             "mxnet_tpu_torch/csrc/paged_decode.cu",
-                             "mxnet_tpu/kernels/flash_decode.py:307")}
+                              "mxnet_tpu/kernels/flash_attention.py:188",
+                              counts),
+            "paged_decode": ("mxtt_paged_decode", decode_src,
+                             "mxnet_tpu/kernels/flash_decode.py:307",
+                             counts),
+            "contig_decode": ("mxtt_contig_decode", decode_src,
+                              "mxnet_tpu/kernels/flash_decode.py:147",
+                              gen_counts["model"]),
+            "contig_decode_q8": ("mxtt_contig_decode_q8", decode_src,
+                                 "mxnet_tpu/kernels/flash_decode.py:762",
+                                 gen_counts["int8"]),
+            "paged_decode_q8": ("mxtt_paged_decode_q8", decode_src,
+                                "mxnet_tpu/kernels/flash_decode.py:376",
+                                counts_q8)}
     # the TPU kernel and the error are read under two names each
     # (replaces/tpu_kernel, max_abs_err/max_err): one value, both keys
     kernels = []
     for e in entries:
-        sym, src, tpu = meta[e["name"]]
+        sym, src, tpu, run = meta[e["name"]]
         kernels.append({"name": e["name"], "route": "cuda", "source": src,
                         "replaces": tpu, "tpu_kernel": tpu,
-                        "launches": counts[sym],
+                        "launches": run[sym],
                         "max_abs_err": e["max_abs_err"],
                         "max_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"],

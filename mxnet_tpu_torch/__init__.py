@@ -9,8 +9,11 @@ caller passes `device="cpu"`; on the CPU each kernel wrapper takes its
 plain PyTorch version.
 
 Ported so far: the Llama serving path — `models.get_model("llama_3_8b")`
-and `serving.InferenceServer` (paged prefill + decode tick) with the
-RMSNorm, flash-prefill and paged-decode kernels.
+and `serving.InferenceServer` (paged prefill + decode tick, bf16 or int8
+KV pool) — and contiguous-cache generation, `models.generate` and
+`models.generate_beam` (bf16 or int8 cache), with the RMSNorm,
+flash-prefill and four decode-attention kernels (contiguous and paged,
+each over a model-dtype or an int8 cache).
 """
 from . import models, serving
 from .context import resolve_device

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "check_weights_on"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +26,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def check_weights_on(net, device: torch.device):
+    """Raise unless `net`'s weights live on `device` (a resolved device;
+    `cuda` without an index matches any card)."""
+    wdev = next(net.parameters()).device
+    if wdev.type != device.type or (
+            device.index is not None and wdev != device):
+        raise ValueError(f"the net's weights are on {wdev}, the entry point "
+                         f"runs on {device}")

@@ -34,7 +34,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // 16-byte chunks: the widest load a thread can issue. A chunk holds
-// kVec<T> values; the wrappers require 16-byte aligned rows.
+// kVec<T> values (16 int8 codes); the wrappers require 16-byte aligned
+// rows.
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
 
@@ -65,6 +66,19 @@ __device__ __forceinline__ void store_chunk<__nv_bfloat16>(float* dst,
                       __uint_as_float(raw.z & 0xffff0000u),
                       __uint_as_float(raw.w << 16),
                       __uint_as_float(raw.w & 0xffff0000u));
+}
+template <>
+__device__ __forceinline__ void store_chunk<int8_t>(float* dst, uint4 raw) {
+  // 16 int8 codes, byte 0 of each word first (little-endian); each code
+  // widens exactly
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    d4[i] = make_float4((float)(int8_t)(w[i] & 0xffu),
+                        (float)(int8_t)((w[i] >> 8) & 0xffu),
+                        (float)(int8_t)((w[i] >> 16) & 0xffu),
+                        (float)(int8_t)(w[i] >> 24));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,6 +1,9 @@
 """Model zoo of the port (counterpart of `mxnet_tpu/models`): the Llama
-family so far."""
+family so far, with contiguous-cache `generate` and `generate_beam`
+(`llama_infer`)."""
 from __future__ import annotations
+
+from .llama_infer import generate, generate_beam
 
 _FACTORIES = {}
 

@@ -1,9 +1,12 @@
 """Paged KV cache: a fixed pool of fixed-size blocks shared by every
 in-flight sequence (counterpart of `mxnet_tpu/serving/kv_cache.py`
-without its prefix cache, host tier or int8 pools).
+without its prefix cache or host tier).
 
-The pool per layer is {"k", "v"} of (N, K, bs, d) in the model dtype, on
-the serving device (`cuda` unless `device="cpu"` is asked for); a
+The pool per layer is {"k", "v"} of (N, K, bs, d) in the model dtype or,
+with `quantized=True`, int8 codes {"k", "v"} (N, K, bs, d) plus fp32
+per-token scales {"ks", "vs"} (N, K, bs, 1) initialised to 1e-8/127 (the
+scale of an all-zero row), on the serving device (`cuda` unless
+`device="cpu"` is asked for); a
 sequence holds ceil(len / bs) blocks, listed in its slot's row of
 `block_tables` (physical ids in logical order). The
 decode kernel reads through that table. The prefill and decode tick
@@ -35,7 +38,7 @@ class PagedKVCache:
     def __init__(self, *, num_layers: int, num_kv_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, batch_slots: int,
                  max_blocks_per_seq: int, dtype=torch.float32,
-                 device=None):
+                 quantized: bool = False, device=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved scratch block)")
@@ -48,10 +51,21 @@ class PagedKVCache:
         self.batch_slots = batch_slots
         self.max_blocks_per_seq = max_blocks_per_seq
         self.dtype = dtype
+        self.quantized = quantized
         shape = (num_blocks, num_kv_heads, block_size, head_dim)
-        self.pages = [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}
-                      for _ in range(num_layers)]
+
+        def pool():
+            if not quantized:
+                return {f: torch.zeros(shape, dtype=dtype, device=device)
+                        for f in ("k", "v")}
+            pg = {f: torch.zeros(shape, dtype=torch.int8, device=device)
+                  for f in ("k", "v")}
+            for f in ("ks", "vs"):
+                pg[f] = torch.full(shape[:3] + (1,), 1e-8 / 127.0,
+                                   dtype=torch.float32, device=device)
+            return pg
+
+        self.pages = [pool() for _ in range(num_layers)]
 
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         #: (slots, max_blocks) physical ids in logical order; 0 =

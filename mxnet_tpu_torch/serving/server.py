@@ -24,9 +24,13 @@ retry cap (``preempted``), a watchdog raising :class:`ServerStalledError`
 after `watchdog_ticks` ticks without progress, `cancel()`
 (``cancelled``), and `drain()` / `shutdown()` (stragglers ``rejected``).
 
-Not ported yet: the prefix cache, int8 pools, chunked prefill,
-speculative decoding, LoRA and tenants, the KV tier, per-request traces
-and every telemetry, flight, goodput and fault hook.
+`kv_cache_dtype="int8"` keeps the pool as int8 codes with per-token fp32
+scales (about half the bytes of a bf16 pool), read by the int8 paged
+decode kernel.
+
+Not ported yet: the prefix cache, chunked prefill, speculative decoding,
+LoRA and tenants, the KV tier, per-request traces and every telemetry,
+flight, goodput and fault hook.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..context import resolve_device
+from ..context import check_weights_on, resolve_device
 from ..models.llama_infer import _params_tree
 from . import executables
 from .kv_cache import PagedKVCache
@@ -118,28 +122,28 @@ class InferenceServer:
 
     `max_len` (= max_blocks_per_seq * block_size) bounds prompt +
     generated tokens per sequence; `num_blocks` sizes the shared pool
-    (default: every slot at full length, +1 scratch). `device` defaults
-    to `cuda`; the net's weights must live there."""
+    (default: every slot at full length, +1 scratch). `kv_cache_dtype`
+    is "model" or "int8". `device` defaults to `cuda`; the net's weights
+    must live there."""
 
     def __init__(self, net, *, batch_slots: int = 8, max_len: int = 256,
                  block_size: int = 16, max_prompt_len: Optional[int] = None,
+                 kv_cache_dtype: str = "model",
                  num_blocks: Optional[int] = None,
                  max_preemptions: Optional[int] = 3,
                  watchdog_ticks: int = 256, device=None):
         if max_len % block_size:
             raise ValueError("max_len must be a multiple of block_size")
+        executables.check_kv_cache_dtype(kv_cache_dtype)
         self.device = resolve_device(device)
-        wdev = next(net.parameters()).device
-        if wdev.type != self.device.type or (
-                self.device.index is not None and wdev != self.device):
-            raise ValueError(f"the net's weights are on {wdev}, the server "
-                             f"runs on {self.device}")
+        check_weights_on(net, self.device)
         cfg = net.model.cfg
         self.net = net
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.block_size = block_size
+        self.kv_cache_dtype = kv_cache_dtype
         self.max_prompt_len = max_prompt_len or min(max_len, 64)
         if self.max_prompt_len > max_len:
             raise ValueError(f"max_prompt_len={self.max_prompt_len} exceeds "
@@ -152,9 +156,10 @@ class InferenceServer:
             head_dim=cfg.head_dim, num_blocks=num_blocks,
             block_size=block_size, batch_slots=batch_slots,
             max_blocks_per_seq=max_blocks, dtype=cfg.torch_dtype,
-            device=self.device)
+            quantized=kv_cache_dtype == "int8", device=self.device)
         self.programs = executables.paged_programs(
-            cfg, batch_slots=batch_slots, block_size=block_size)
+            cfg, batch_slots=batch_slots, block_size=block_size,
+            kv_cache_dtype=kv_cache_dtype)
         self._params = _params_tree(net)
 
         B = batch_slots

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -68,6 +69,20 @@ def test_entry_points_refuse_cpu_fallback_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="weights are on cpu"):
         InferenceServer(net, device="cuda")
+
+
+def test_generate_refuses_cpu_fallback_without_cuda(monkeypatch):
+    from mxnet_tpu_torch.models import generate, generate_beam, get_model
+    net = get_model("llama_tiny", device="cpu")
+    prompt = np.zeros((1, 3), np.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (generate, generate_beam):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(net, prompt, 2)
+    assert generate(net, prompt, 2, device="cpu").shape == (1, 5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="weights are on cpu"):
+        generate(net, prompt, 2, device="cuda")
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -23,7 +23,9 @@ from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (
     flash_attention_forward, reference_attention)
 from mxnet_tpu_torch.kernels.flash_decode import (
-    flash_decode_paged, gather_kv_pages, reference_decode_attention)
+    flash_decode, flash_decode_paged, flash_decode_paged_quantized,
+    flash_decode_quantized, gather_kv_pages, quantize_kv,
+    reference_decode_attention)
 from mxnet_tpu_torch.kernels.fused_norm import rmsnorm, rmsnorm_ref
 
 T_ = torch.from_numpy
@@ -190,8 +192,14 @@ def test_cpu_tensors_launch_nothing():
                             q[:, :, :1].contiguous())
     q2, kp, vp, bt, vl = _paged_inputs(rs, 1, 2, 1, 16, 8, 2, [9])
     flash_decode_paged(T_(q2), T_(kp), T_(vp), T_(bt), T_(vl))
+    q8 = quantize_kv(T_(kp), T_(vp))
+    flash_decode_paged_quantized(T_(q2), *q8, T_(bt), T_(vl))
+    c = gather_kv_pages(T_(kp), T_(bt))
+    flash_decode(T_(q2), c, c, T_(vl))
+    flash_decode_quantized(T_(q2), *quantize_kv(c, c), T_(vl))
     assert set(_build.launch_counts()) == {
-        "mxtt_rmsnorm", "mxtt_flash_prefill", "mxtt_paged_decode"}
+        "mxtt_rmsnorm", "mxtt_flash_prefill", "mxtt_paged_decode",
+        "mxtt_paged_decode_q8", "mxtt_contig_decode", "mxtt_contig_decode_q8"}
     assert all(n == 0 for n in _build.launch_counts().values())
     assert _build._lib is None
 
@@ -207,7 +215,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_library_key_covers_every_source():
     srcs = {p.name for p in _build._sources()}
     assert {"common.cuh", "rmsnorm.cu", "flash_prefill.cu",
-            "paged_decode.cu", "status.cu"} <= srcs
+            "decode_attention.cu", "status.cu"} <= srcs
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()          # stable key
