@@ -15,7 +15,14 @@ exits non-zero and prints no result:
    outside it; kernel, plain and library (yardstick only: the port never
    calls it) times with a cold L2, and the least time the card could
    take for the same work. The int8 decode kernels read caches quantized
-   from rows whose magnitudes vary by token.
+   from rows whose magnitudes vary by token. Then the training step's
+   kernels at the train phase's shapes: RMSNorm with its rrms and the dx
+   kernel (4096 x 4096 bf16), the attention forward with its lse and the
+   dq and dkv kernels (B=2, T=2048, H=32, K=8, d=128, causal) plus a
+   ragged and a tiny fp32 case with an empty row, a backward off by one
+   at the diagonal falling outside the tolerances, and the fused CE
+   forward and backward (N=4096, V=32000) with a label off by one
+   falling outside them.
 3. serve: Llama-3-8B at full width (vocab 32000, D 4096, I 14336, 32
    layers, 32 heads / 8 kv heads, bf16; random weights from a seed)
    behind `InferenceServer(batch_slots=8, block_size=16, max_len=2048,
@@ -46,7 +53,16 @@ exits non-zero and prints no result:
    caches within max(2%, twice the bf16 path's own deviation from an
    fp32 copy of the net) relative logit difference; then `generate_beam` on
    two prompts (beam_size 4, 8 new tokens). Tokens/s of each run.
-5. the kernels line (JSON), the card line, and the result line
+5. train: with the serving net freed, Llama-3-8B at full width cut to 4
+   layers (1.13 B parameters) behind `FusedTrainStep` with AdamW (lr
+   3e-4, wd 0.1) and `SoftmaxCrossEntropyLoss`, one batch of B=2 x
+   T=2048 tokens: one step's gradients through the kernels held per
+   parameter against the plain versions' (torch autograd) and an fp32
+   copy's; five steps with exact launch counts (per step RMSNorm and its
+   dx 2L + 1 each, attention forward, dq and dkv L each, CE forward and
+   backward 1 each), finite and strictly falling losses; train tokens/s
+   over steps 2-5; one more step's card time by kernel family.
+6. the kernels line (JSON), the card line, and the result line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -621,7 +637,364 @@ def kernel_paged_window(torch, F, flush):
     return entry
 
 
-# -- phase 3: serve ------------------------------------------------------------
+# -- phase 2b: the training step's kernels at the train phase's shapes -------
+
+#: the train phase (phase 5): Llama-3-8B widths cut to 4 layers, B=2, T=2048
+TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 2, 2048
+TRAIN_ROWS = TRAIN_B * TRAIN_T        # rows of every norm and of the CE
+
+
+def kernel_rmsnorm_train(torch, F, flush):
+    """RMSNorm forward with its rrms and the dx kernel against their plain
+    versions at the train shape (4096 x 4096 bf16) and a narrow fp32
+    case. Returns (the forward's train-shape times, the dx entry)."""
+    from mxnet_tpu_torch.kernels.fused_norm import (
+        rmsnorm_dx, rmsnorm_dx_ref, rmsnorm_fwd, rmsnorm_fwd_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    eps = 1e-5
+    fwd, entry = None, None
+    for label, (n, d), dtype in (("train", (TRAIN_ROWS, 4096), torch.bfloat16),
+                                 ("narrow fp32", (37, 64), torch.float32)):
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        dy = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        out, rrms = rmsnorm_fwd(x, g, eps)
+        ref, rrms_ref = rmsnorm_fwd_ref(x, g, eps)
+        dx = rmsnorm_dx(x, g, rrms, dy)
+        dx_ref = rmsnorm_dx_ref(x, g, rrms, dy)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        rtol = BF16_STEP if bf16 else 2.0 ** -19
+        _, text = held(torch, f"rmsnorm {label}", out, ref,
+                       rtol * ref.float().abs())
+        # both sum d positive squares in fp32, each in a tree of depth
+        # under 32 (about 2^-19 relative) and rsqrt halves it: 2^-16
+        # leaves 8x headroom and stays under the 2^-12 that a wrong
+        # divisor (d - 1) would make
+        _, rtext = held(torch, f"rmsnorm rrms {label}", rrms, rrms_ref,
+                        2.0 ** -16 * rrms_ref.abs())
+        # dx: both compute r * (g dy - x corr) in fp32 with corr a d-term
+        # mean in another sum order (fp32 noise of the terms' scale) and
+        # round once (one bf16 step of |ref|)
+        xs, r = x.float(), rrms[:, None]
+        wdy = dy.float() * g
+        corr = (wdy * xs).mean(dim=-1, keepdim=True) * r * r
+        tol = FP32_NOISE * r * (wdy.abs() + (xs * corr).abs())
+        if bf16:
+            tol = tol + BF16_STEP * dx_ref.float().abs()
+        err, dtext = held(torch, f"rmsnorm_dx {label}", dx, dx_ref, tol)
+        line = f"[kernels] rmsnorm {label} {tuple(x.shape)} {dtype}: out " \
+               f"{text}; rrms {rtext}; dx {dtext}"
+        if label == "train":
+            ms = cold_ms(torch, lambda: rmsnorm_fwd(x, g, eps), flush)
+            plain = cold_ms(torch, lambda: rmsnorm_fwd_ref(x, g, eps), flush)
+            gx = g.to(dtype)
+            lib = cold_ms(torch, lambda: F.rms_norm(x, (d,), gx, eps), flush)
+            b_ms, b_by = bound(2 * x.numel() * x.element_size() + d * 4
+                               + n * 4, 4 * x.numel(), "fp32")
+            fwd = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"x {tuple(x.shape)} bf16, "
+                                            f"writing rrms")
+            dms = cold_ms(torch, lambda: rmsnorm_dx(x, g, rrms, dy), flush)
+            dplain = cold_ms(torch, lambda: rmsnorm_dx_ref(x, g, rrms, dy),
+                             flush)
+            # yardstick: the backward of F.rms_norm for x alone, its
+            # forward graph built once and kept
+            xr = x.detach().requires_grad_()
+            y = F.rms_norm(xr, (d,), gx, eps)
+            dlib = cold_ms(torch, lambda: torch.autograd.grad(
+                y, xr, dy, retain_graph=True), flush)
+            db_ms, db_by = bound(3 * x.numel() * x.element_size() + d * 4
+                                 + n * 4, 6 * x.numel(), "fp32")
+            line += f"; forward ms={ms:.4f} plain_ms={plain:.4f} " \
+                    f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}); " \
+                    f"dx ms={dms:.4f} plain_ms={dplain:.4f} library_ms=" \
+                    f"{dlib:.4f} (F.rms_norm backward) bound_ms=" \
+                    f"{db_ms:.4f} ({db_by})"
+            entry = dict(name="rmsnorm_dx", max_abs_err=err, ms=dms,
+                         plain_ms=dplain, library_ms=dlib, bound_ms=db_ms,
+                         bound_by=db_by,
+                         shape=f"x, dy {tuple(x.shape)} bf16")
+        print(line, flush=True)
+    return fwd, entry
+
+
+def attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale, lengths,
+                       diag=0):
+    """fp32 (dq, dk, dv) of attention from the forward's lse and delta,
+    keys kept where s < lengths[b] and s <= t + diag (a kernel off by
+    one at the diagonal for diag = +-1), GQA groups summed; and, for
+    diag = 0, the scale of each output's terms (sums of |terms|), the
+    scale of its fp32 rounding."""
+    B, T, H, d = q.shape
+    K = k.shape[2]
+    rep = H // K
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    qf, dof = q.float(), dout.float()
+    j = torch.arange(T, device=q.device)
+    keep = (j[None, :] < lengths[:, None].long())[:, None, None, :] \
+        & (j[None, :] <= j[:, None] + diag)[None, None]
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    del s, keep
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - delta[..., None])
+
+    def group(g):                           # (B, T, H, d) -> (B, T, K, d)
+        return g.reshape(B, T, K, rep, d).sum(dim=3)
+    grads = (torch.einsum("bhts,bshd->bthd", ds, kf) * scale,
+             group(torch.einsum("bhts,bthd->bshd", ds, qf)) * scale,
+             group(torch.einsum("bhts,bthd->bshd", p, dof)))
+    if diag:
+        return grads, None
+    del ds
+    mag = p * (torch.einsum("bthd,bshd->bhts", dof.abs(), vf.abs())
+               + delta.abs()[..., None])
+    del dp
+    terms = (torch.einsum("bhts,bshd->bthd", mag, kf.abs()) * scale,
+             group(torch.einsum("bhts,bthd->bshd", mag, qf.abs())) * scale,
+             group(torch.einsum("bhts,bthd->bshd", p, dof.abs())))
+    return grads, terms
+
+
+def kernel_flash_train(torch, F, flush):
+    """The attention forward with its lse and the dq and dkv kernels
+    against their plain versions at the train shape (B=2, T=2048, H=32,
+    K=8, d=128, causal, bf16), a ragged case and a tiny fp32 case with an
+    empty row. Returns (the forward's train-shape times, the dq entry,
+    the dkv entry)."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = (("train", TRAIN_B, TRAIN_T, 32, 8, 128, [TRAIN_T] * TRAIN_B,
+              torch.bfloat16),
+             ("ragged", 2, 333, 32, 8, 128, [333, 150], torch.bfloat16),
+             ("tiny fp32", 3, 77, 4, 2, 16, [77, 40, 0], torch.float32))
+    fwd = dq_entry = dkv_entry = None
+    for label, B, T, H, K, d, lens, dtype in cases:
+        q, dout = (torch.randn(B, T, H, d, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, T, K, d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_forward(q, k, v, True, scale, lengths,
+                                              return_lse=True)
+        ref, lse_ref = fa.reference_attention_lse(q, k, v, True, scale,
+                                                  lengths)
+        delta = fa.attention_delta(out, dout)
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, True, scale, lengths)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, True, scale,
+                                  lengths)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, dout, lse, delta, True, scale,
+                                     lengths)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta,
+                                              True, scale, lengths)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        # out: as in the prefill check (kernel_flash_prefill)
+        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
+                                                 lengths, True), v, H)
+        tol = FP32_NOISE * pv_abs
+        if bf16:
+            tol = tol + BF16_STEP * ref.float().abs() + BF16_ROUND * pv_abs
+        _, otext = held(torch, f"flash_fwd {label}", out, ref, tol)
+        # lse: scores are d-term fp32 dots and the row sum another order:
+        # fp32 noise of the row's scale; +inf exactly on a row with no key
+        empty = torch.isinf(lse_ref)
+        check(bool((torch.isinf(lse) == empty).all())
+              and bool((lse[empty] > 0).all()),
+              f"flash_fwd {label}: lse is not +inf exactly on empty rows")
+        fin = ~empty
+        _, ltext = held(torch, f"flash_fwd lse {label}", lse[fin],
+                        lse_ref[fin], FP32_NOISE * (1 + lse_ref[fin].abs()))
+        # dq, dk, dv: both compute in fp32 from the same inputs, lse and
+        # delta (fp32 noise of each output's sum of |terms|) and round
+        # once (one bf16 step of |ref|)
+        (_, terms) = attn_backward_fp32(torch, q, k, v, dout, lse, delta,
+                                        scale, lengths)
+        tols = [FP32_NOISE * t + (BF16_STEP * r.float().abs() if bf16 else 0)
+                for t, r in zip(terms, (dq_ref, dk_ref, dv_ref))]
+        del terms
+        errs, texts = zip(*(held(torch, f"flash_{n} {label}", o, r, t)
+                            for n, o, r, t in zip(
+                                ("dq", "dk", "dv"), (dq, dk, dv),
+                                (dq_ref, dk_ref, dv_ref), tols)))
+        line = f"[kernels] flash backward {label} B={B} T={T} H={H} K={K} " \
+               f"d={d} lengths={lens} {dtype}: out {otext}; lse {ltext}; " \
+               + "; ".join(f"{n} {t}" for n, t in zip(("dq", "dk", "dv"),
+                                                      texts))
+        if label == "train":
+            # a backward off by one at the diagonal (each row seeing one
+            # key more or one fewer) would fail the same tolerances
+            wrong = []
+            for dg in (-1, 1):
+                grads, _ = attn_backward_fp32(torch, q, k, v, dout, lse,
+                                              delta, scale, lengths, dg)
+                wrong += [caught(torch, f"flash_{n} diagonal{dg:+d}",
+                                 w.to(dtype), r, t)
+                          for n, w, r, t in zip(("dq", "dk", "dv"), grads,
+                                                (dq_ref, dk_ref, dv_ref),
+                                                tols)]
+                del grads
+            line += "; off by one: " + ", ".join(wrong)
+            del tols
+            torch.cuda.empty_cache()
+            ms = cold_ms(torch, lambda: fa.flash_attention_forward(
+                q, k, v, True, scale, lengths, return_lse=True), flush,
+                reps=10)
+            plain = cold_ms(torch, lambda: fa.reference_attention_lse(
+                q, k, v, True, scale, lengths), flush, reps=5)
+            qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                          for a in (q, k, v))
+            lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush, reps=10)
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+            do_t = dout.transpose(1, 2)
+            lib_bwd = cold_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_t, retain_graph=True), flush,
+                reps=10)
+            dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=10)
+            dkv_ms = cold_ms(torch, lambda: fa.flash_bwd_dkv(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=10)
+            dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=5)
+            dkv_plain = cold_ms(torch, lambda: fa.flash_bwd_dkv_ref(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=5)
+            # this run's work: query row t attends t + 1 keys (full
+            # lengths); per pair the forward does 4d flops, dq 6d (the
+            # score, dO V^T, dS K) and dkv 8d (the score, dO V^T, P^T dO,
+            # dS^T Q); each input read once, each output written once
+            pairs = sum(min(i + 1, L) for L in lens for i in range(T))
+            qb, kb = q.numel() * 2, k.numel() * 2
+            stats = 2 * B * H * T * 4
+            f_ms, f_by = bound(2 * qb + 2 * kb + B * H * T * 4,
+                               pairs * H * 4 * d, "bf16")
+            q_ms, q_by = bound(3 * qb + 2 * kb + stats,
+                               pairs * H * 6 * d, "bf16")
+            k_ms, k_by = bound(2 * qb + 4 * kb + stats,
+                               pairs * H * 8 * d, "bf16")
+            line += f"; forward+lse ms={ms:.4f} plain_ms={plain:.4f} " \
+                    f"library_ms={lib:.4f} (SDPA, causal, GQA) bound_ms=" \
+                    f"{f_ms:.4f} ({f_by}); dq ms={dq_ms:.4f} plain_ms=" \
+                    f"{dq_plain:.4f} bound_ms={q_ms:.4f} ({q_by}); dkv ms=" \
+                    f"{dkv_ms:.4f} plain_ms={dkv_plain:.4f} bound_ms=" \
+                    f"{k_ms:.4f} ({k_by}); SDPA backward (dq, dk, dv " \
+                    f"together) library_ms={lib_bwd:.4f}"
+            shape = f"B={B} T={T} H={H} K={K} d={d} causal, full lengths bf16"
+            fwd = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=f_ms,
+                       bound_by=f_by, shape=shape + ", writing lse")
+            dq_entry = dict(name="flash_bwd_dq", max_abs_err=errs[0],
+                            ms=dq_ms, plain_ms=dq_plain, library_ms=lib_bwd,
+                            bound_ms=q_ms, bound_by=q_by, shape=shape,
+                            library="SDPA backward: dq, dk, dv together")
+            dkv_entry = dict(name="flash_bwd_dkv",
+                             max_abs_err=max(errs[1:]), ms=dkv_ms,
+                             plain_ms=dkv_plain, library_ms=lib_bwd,
+                             bound_ms=k_ms, bound_by=k_by, shape=shape,
+                             library="SDPA backward: dq, dk, dv together")
+            del o_lib, qt, kt, vt
+        print(line, flush=True)
+        del q, k, v, dout, out, ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+    return fwd, dq_entry, dkv_entry
+
+
+def kernel_ce(torch, F, flush):
+    """The fused softmax-CE forward and backward kernels against their
+    plain versions at the train shape (N=4096 rows, V=32000, bf16), rows
+    that are not 16-byte aligned (the scalar path) and fp32. Returns the
+    forward and backward entries."""
+    from mxnet_tpu_torch.kernels.fused_ce import (ce_bwd, ce_bwd_ref,
+                                                  ce_fwd, ce_fwd_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases = (("train", TRAIN_ROWS, 32000, torch.bfloat16),
+             ("unaligned rows", 37, 1030, torch.bfloat16),
+             ("fp32", 64, 1024, torch.float32))
+    fwd_entry = bwd_entry = None
+    for label, N, V, dtype in cases:
+        # logits of a random net's scale, labels anywhere in the vocab;
+        # the loss cotangent is the mean's, 1/N
+        x = (2 * torch.randn(N, V, generator=gen, device="cuda")).to(dtype)
+        lbl = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        dl = torch.full((N,), 1.0 / N, device="cuda")
+        loss, lse = ce_fwd(x, lbl)
+        loss_ref, lse_ref = ce_fwd_ref(x, lbl)
+        dx = ce_bwd(x, lbl, lse, dl)
+        dx_ref = ce_bwd_ref(x, lbl, lse, dl)
+        torch.cuda.synchronize()
+        # lse: an fp32 sum of V exponentials in another order with
+        # another exp: fp32 noise of the row's scale; loss = lse - x[label]
+        xl = x.float().gather(1, lbl.long()[:, None])[:, 0]
+        tol_l = FP32_NOISE * (1 + lse_ref.abs() + xl.abs())
+        _, ltext = held(torch, f"ce_fwd lse {label}", lse, lse_ref,
+                        FP32_NOISE * (1 + lse_ref.abs()))
+        err_f, ftext = held(torch, f"ce_fwd loss {label}", loss, loss_ref,
+                            tol_l)
+        # dx: (p - onehot) * g in fp32 (p's fp32 noise) rounded once (one
+        # bf16 step of |ref|)
+        p = torch.exp(x.float() - lse[:, None])
+        tol_d = FP32_NOISE * (p + 1) * dl[:, None]
+        if dtype == torch.bfloat16:
+            tol_d = tol_d + BF16_STEP * dx_ref.float().abs()
+        del p
+        err_b, btext = held(torch, f"ce_bwd {label}", dx, dx_ref, tol_d)
+        line = f"[kernels] ce {label} N={N} V={V} {dtype}: lse {ltext}; " \
+               f"loss {ftext}; dx {btext}"
+        if label == "train":
+            # a kernel reading the label off by one would fail both
+            nxt = (lbl + 1) % V
+            wl, _ = ce_fwd_ref(x, nxt)
+            wd = ce_bwd_ref(x, nxt, lse, dl)
+            line += "; label off by one: " + ", ".join((
+                caught(torch, "ce_fwd label+1", wl, loss_ref, tol_l),
+                caught(torch, "ce_bwd label+1", wd, dx_ref, tol_d)))
+            del wl, wd
+            ms = cold_ms(torch, lambda: ce_fwd(x, lbl), flush)
+            plain = cold_ms(torch, lambda: ce_fwd_ref(x, lbl), flush)
+            lbl64 = lbl.long()
+            lib = cold_ms(torch, lambda: F.cross_entropy(
+                x, lbl64, reduction="none"), flush)
+            b_ms = cold_ms(torch, lambda: ce_bwd(x, lbl, lse, dl), flush)
+            b_plain = cold_ms(torch, lambda: ce_bwd_ref(x, lbl, lse, dl),
+                              flush)
+            xr = x.detach().requires_grad_()
+            y = F.cross_entropy(xr, lbl64, reduction="none")
+            b_lib = cold_ms(torch, lambda: torch.autograd.grad(
+                y, xr, dl, retain_graph=True), flush)
+            xb = x.numel() * x.element_size()
+            f_bound = bound(xb + 4 * N + 8 * N, 4 * x.numel(), "fp32")
+            b_bound = bound(2 * xb + 12 * N, 4 * x.numel(), "fp32")
+            line += f"; forward ms={ms:.4f} plain_ms={plain:.4f} " \
+                    f"library_ms={lib:.4f} (F.cross_entropy) bound_ms=" \
+                    f"{f_bound[0]:.4f} ({f_bound[1]}); backward ms=" \
+                    f"{b_ms:.4f} plain_ms={b_plain:.4f} library_ms=" \
+                    f"{b_lib:.4f} (its backward) bound_ms={b_bound[0]:.4f} " \
+                    f"({b_bound[1]})"
+            shape = f"N={N} V={V} bf16"
+            fwd_entry = dict(name="ce_fwd", max_abs_err=err_f, ms=ms,
+                             plain_ms=plain, library_ms=lib,
+                             bound_ms=f_bound[0], bound_by=f_bound[1],
+                             shape=shape)
+            bwd_entry = dict(name="ce_bwd", max_abs_err=err_b, ms=b_ms,
+                             plain_ms=b_plain, library_ms=b_lib,
+                             bound_ms=b_bound[0], bound_by=b_bound[1],
+                             shape=shape)
+            del xr, y
+        print(line, flush=True)
+        del x, dx, dx_ref
+        torch.cuda.empty_cache()
+    return fwd_entry, bwd_entry
+
+
+# -- phase 3: serve -----------------------------------------------------------
 
 def plain_prefill_logits(torch, F, net, prompt, dtype):
     """Last-position logits of an unpadded prompt through the plain
@@ -870,7 +1243,7 @@ def serve_int8(torch, net, prompts, first_bf16):
     return counts
 
 
-# -- phase 3b: prefix cache, chunked prefill, speculation ----------------------
+# -- phase 3b: prefix cache, chunked prefill, speculation ---------------------
 
 PREFIX_LEN, CHUNK, SPEC_K = 392, 256, 4
 
@@ -1206,7 +1579,7 @@ def serve_oracle(torch, F, net, prompts):
           flush=True)
 
 
-# -- phase 4: generate ---------------------------------------------------------
+# -- phase 4: generate --------------------------------------------------------
 
 def teacher_forced(net, kv, ids, valid_len, toks):
     """fp32 logits (B, V) of each step of `net`'s contiguous-cache decoder
@@ -1339,6 +1712,219 @@ def generate_phase(torch, net, prompts):
     return runs
 
 
+# -- phase 5: train -----------------------------------------------------------
+
+#: gradients within one bf16 step (relative L2) count as agreeing whatever
+#: the plain path's own distance from fp32: below the dtype's resolution
+GRAD_FLOOR = 2.0 ** -7
+
+
+def plain_train_loss(torch, F, net, x, y):
+    """The train step's loss through the plain versions of every kernel
+    (RMSNorm, attention with P cast to v's dtype, the CE), in the net's
+    own dtype, for torch autograd to differentiate."""
+    from mxnet_tpu_torch.kernels.fused_ce import ce_fwd_ref
+    from mxnet_tpu_torch.kernels.flash_attention import reference_attention
+    from mxnet_tpu_torch.kernels.fused_norm import rmsnorm_ref
+    from mxnet_tpu_torch.models.llama_infer import _params_tree
+    from mxnet_tpu_torch.models.llama_math import rope_at, swiglu
+    cfg = net.cfg
+    p = _params_tree(net, detach=False)
+    H, K, d, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps
+    B, T = x.shape
+    pos = torch.arange(T, device=x.device)
+    h = p["embed"][x]
+    for lp in p["layers"]:
+        a = rmsnorm_ref(h, lp["ln1"], eps)
+        q = rope_at(F.linear(a, lp["wq"]).reshape(B, T, H, d), pos,
+                    cfg.rope_base)
+        k = rope_at(F.linear(a, lp["wk"]).reshape(B, T, K, d), pos,
+                    cfg.rope_base)
+        v = F.linear(a, lp["wv"]).reshape(B, T, K, d)
+        att = reference_attention(q, k, v, True, 1.0 / math.sqrt(d))
+        h = h + F.linear(att.reshape(B, T, -1), lp["wo"])
+        h = h + swiglu(rmsnorm_ref(h, lp["ln2"], eps), lp["gate"],
+                       lp["up"], lp["down"])
+    logits = F.linear(rmsnorm_ref(h, p["norm"], eps), p["head"])
+    return ce_fwd_ref(logits.reshape(B * T, -1), y.reshape(-1))[0] \
+        .mean().float()
+
+
+def rel_l2(torch, a, b):
+    """||a - b|| / ||b|| in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def train_breakdown(torch, step, x, y, wall):
+    """One step's card time by kernel family (torch.profiler): the
+    forward and backward (`loss_and_grads`) split by kernel, the update
+    (`apply_update`) as the optimizer's; the card's idle share of
+    `wall`, the median step's wall time (host clock, no profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # (part of the CUDA kernel's name, family)
+    fam_of = (("rmsnorm_dx_kernel", "rmsnorm_dx"),
+              ("rmsnorm_kernel", "rmsnorm"),
+              ("flash_bwd_dq_kernel", "flash_bwd_dq"),
+              ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+              ("flash_prefill_kernel", "flash_fwd"),
+              ("ce_fwd_kernel", "ce_fwd"), ("ce_bwd_kernel", "ce_bwd"))
+
+    def busy(fn, split):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        fam = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CPU:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            name = ev.key.lower()
+            key = "optimizer (elementwise)"
+            if split:
+                key = next((k for part, k in fam_of if part in name), None)
+                if key is None:
+                    key = "cuBLAS" if any(w in name for w in (
+                        "gemm", "nvjet", "cutlass", "xmma")) \
+                        else "elementwise and copies"
+            fam[key] = fam.get(key, 0.0) + us / 1e3
+        return out, fam
+
+    (_, grads), fam = busy(lambda: step.loss_and_grads(x, y), True)
+    _, fam_opt = busy(lambda: step.apply_update(grads), False)
+    fam.update(fam_opt)
+    total = sum(fam.values())
+    if total <= 0:
+        print(f"[train] one step: wall {wall:.1f} ms; card busy time not "
+              f"measured (torch.profiler recorded no device time)",
+              flush=True)
+        return
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(fam.items(), key=lambda kv: -kv[1]))
+    print(f"[train] one step: wall {wall:.1f} ms (median of steps 2-5, "
+          f"host clock); card busy {total:.1f} ms (one more step under "
+          f"torch.profiler) = {100 * total / wall:.1f}% of it (idle "
+          f"{100 * max(0.0, 1 - total / wall):.1f}%); busy ms by family: "
+          f"{parts}", flush=True)
+
+
+def train_phase(torch, F, card):
+    """Llama-3-8B at full width cut to TRAIN_LAYERS layers (bf16, random
+    weights from the seed) trained by `FusedTrainStep` with AdamW (lr
+    3e-4, wd 0.1; examples/llama_train.py's defaults) on one batch of
+    B=2 x T=2048 tokens from the seed, the loss through
+    `SoftmaxCrossEntropyLoss`'s fused route. One step's gradients through
+    the kernels (G_k) are held per parameter against the same net's
+    plain-version gradients (torch autograd, G_p) and an fp32 copy's
+    (G_32): rel_l2(G_k, G_32) <= max(GRAD_FLOOR, 2 rel_l2(G_p, G_32)).
+    Then five steps: finite, strictly falling losses and exact launch
+    counts per step; train tokens/s over steps 2-5; one more step under
+    the profiler. Returns the five steps' launch counts."""
+    from mxnet_tpu_torch import gluon, optimizer
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+
+    L, B, T = TRAIN_LAYERS, TRAIN_B, TRAIN_T
+    torch.cuda.reset_peak_memory_stats()
+    net = get_model("llama_3_8b", device="cuda", num_layers=L)
+    cfg = net.cfg
+    V = cfg.vocab_size
+    n_params = sum(p.numel() for p in net.parameters())
+    tok = torch.from_numpy(np.random.RandomState(SEED + 11).randint(
+        0, V, (B, T + 1))).cuda()
+    x, y = tok[:, :-1], tok[:, 1:]
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    step = FusedTrainStep(net, lambda lg, lbl: ce(lg.reshape(-1, V),
+                                                  lbl.reshape(-1)),
+                          optimizer.AdamW(learning_rate=3e-4, wd=0.1))
+    print(f"[train] llama_3_8b vocab={V} D={cfg.hidden_size} "
+          f"I={cfg.intermediate_size} layers={L} (cut from 32: Adam's 12 "
+          f"bytes a parameter for all 7.24 B are 87 GB) heads="
+          f"{cfg.num_heads}/{cfg.num_kv_heads} {cfg.dtype}: "
+          f"{n_params / 1e9:.2f} B random parameters; AdamW lr 3e-4 wd "
+          f"0.1; batch B={B} T={T}", flush=True)
+    per_step = {"mxtt_rmsnorm": 2 * L + 1, "mxtt_rmsnorm_dx": 2 * L + 1,
+                "mxtt_flash_prefill": L, "mxtt_flash_bwd_dq": L,
+                "mxtt_flash_bwd_dkv": L, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+
+    # one step's gradients three ways, before any update
+    _build.reset_launch_counts()
+    loss_k, g_k = step.loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    expect_launches(_build.launch_counts(), per_step, "train gradients")
+    names = [n for n, _ in net.named_parameters()]
+    params = list(net.parameters())
+    loss_p = plain_train_loss(torch, F, net, x, y)
+    g_p = torch.autograd.grad(loss_p, params)
+    del loss_p
+    g_k = [g.float() for g in g_k]
+    g_p = [g.float() for g in g_p]
+    net32 = LlamaForCausalLM(LlamaConfig(num_layers=L, dtype="float32"),
+                             device="cuda")
+    with torch.no_grad():
+        for p32, p in zip(net32.parameters(), params):
+            p32.copy_(p)
+    loss_32 = plain_train_loss(torch, F, net32, x, y)
+    g_32 = torch.autograd.grad(loss_32, list(net32.parameters()))
+    loss_32 = loss_32.detach()
+    del net32
+    rows = []
+    for n, a, b, c in zip(names, g_k, g_p, g_32):
+        rk, rp = rel_l2(torch, a, c), rel_l2(torch, b, c)
+        rows.append((rk / max(GRAD_FLOOR, 2 * rp), n, rk, rp))
+    del g_k, g_p, g_32
+    torch.cuda.empty_cache()
+    worst = sorted(rows, reverse=True)
+    bad = [r for r in rows if r[0] > 1]
+    check(not bad, "train: gradients beyond max(floor, 2 x plain) from "
+                   "fp32: " + ", ".join(f"{n} {rk:.4g} (plain {rp:.4g})"
+                                        for _, n, rk, rp in bad))
+    print(f"[train] one step's gradients, relative L2 from the fp32 copy's "
+          f"plain-path gradients, per parameter: kernel path within "
+          f"max({GRAD_FLOOR:.4g}, 2 x the plain bf16 path's) for all "
+          f"{len(rows)}; loss kernel {float(loss_k):.5f}, fp32 "
+          f"{float(loss_32):.5f}; closest to the bound: " + ", ".join(
+              f"{n} {rk:.4g} (plain {rp:.4g})" for _, n, rk, rp in worst[:4])
+          + f"; kernel-path distances {min(r[2] for r in rows):.4g}-"
+          f"{max(r[2] for r in rows):.4g}, plain-path "
+          f"{min(r[3] for r in rows):.4g}-{max(r[3] for r in rows):.4g}, "
+          f"largest ratio to the bound {worst[0][0]:.3f}", flush=True)
+
+    # five steps on the batch
+    _build.reset_launch_counts()
+    losses, marks = [], []
+    torch.cuda.synchronize()
+    for _ in range(5):
+        marks.append(time.perf_counter())
+        losses.append(float(step(x, y)))      # the float() synchronises
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts = _build.launch_counts()
+    expect_launches(counts, {k: 5 * v for k, v in per_step.items()},
+                    "train 5 steps")
+    check(all(math.isfinite(v) for v in losses)
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"train: losses not finite and strictly falling: {losses}")
+    tps = 4 * B * T / (marks[5] - marks[1])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    walls = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    print(f"[train] 5 AdamW steps on one batch: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; step wall "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms; train tokens/s "
+          f"over steps 2-5: {tps:.1f} ({card}); peak device memory "
+          f"{peak:.2f} GB", flush=True)
+    train_breakdown(torch, step, x, y, float(np.median(walls[1:])))
+    del step, net
+    torch.cuda.empty_cache()
+    return counts
+
 def main() -> int:
     try:
         import torch
@@ -1385,6 +1971,13 @@ def main() -> int:
             entries += [kernel_decode(torch, F, flush, name)
                         for name in DECODE_KERNELS]
             entries.append(kernel_paged_window(torch, F, flush))
+            rms_train, rms_dx = kernel_rmsnorm_train(torch, F, flush)
+            attn_train, dq_entry, dkv_entry = kernel_flash_train(torch, F,
+                                                                 flush)
+            entries += [rms_dx, dq_entry, dkv_entry]
+            entries += kernel_ce(torch, F, flush)
+            entries[0]["train"] = rms_train
+            entries[1]["train"] = attn_train
         finally:
             matmul.allow_bf16_reduced_precision_reduction = reduced
         del flush
@@ -1399,11 +1992,16 @@ def main() -> int:
         serve_oracle(torch, F, net, prompts)
         torch.cuda.empty_cache()
         gen_counts = generate_phase(torch, net, prompts)
+        del net
+        torch.cuda.empty_cache()
+        train_counts = train_phase(torch, F, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     decode_src = "mxnet_tpu_torch/csrc/decode_attention.cu"
+    backward_src = "mxnet_tpu_torch/csrc/flash_backward.cu"
+    ce_src = "mxnet_tpu_torch/csrc/fused_ce.cu"
     # (symbol, source, TPU kernel's pallas_call, the main-path run whose
     # launch count the line reports)
     meta = {"rmsnorm": ("mxtt_rmsnorm", "mxnet_tpu_torch/csrc/rmsnorm.cu",
@@ -1427,7 +2025,21 @@ def main() -> int:
             "paged_window": ("mxtt_paged_window",
                              "mxnet_tpu_torch/csrc/window_attention.cu",
                              "mxnet_tpu/kernels/flash_decode.py:613",
-                             counts_spec)}
+                             counts_spec),
+            "rmsnorm_dx": ("mxtt_rmsnorm_dx",
+                           "mxnet_tpu_torch/csrc/rmsnorm.cu",
+                           "mxnet_tpu/kernels/fused_norm.py:114",
+                           train_counts),
+            "flash_bwd_dq": ("mxtt_flash_bwd_dq", backward_src,
+                             "mxnet_tpu/kernels/flash_attention.py:325",
+                             train_counts),
+            "flash_bwd_dkv": ("mxtt_flash_bwd_dkv", backward_src,
+                              "mxnet_tpu/kernels/flash_attention.py:341",
+                              train_counts),
+            "ce_fwd": ("mxtt_ce_fwd", ce_src,
+                       "mxnet_tpu/kernels/fused_ce.py:119", train_counts),
+            "ce_bwd": ("mxtt_ce_bwd", ce_src,
+                       "mxnet_tpu/kernels/fused_ce.py:161", train_counts)}
     # the TPU kernel and the error are read under two names each
     # (replaces/tpu_kernel, max_abs_err/max_err): one value, both keys
     kernels = []
@@ -1441,8 +2053,8 @@ def main() -> int:
                         "plain_ms": e["plain_ms"],
                         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                         "library_ms": e["library_ms"], "shape": e["shape"],
-                        **({"verify": e["verify"]} if "verify" in e
-                           else {})})
+                        **{key: e[key] for key in ("verify", "train",
+                                                   "library") if key in e}})
     print(card)                       # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

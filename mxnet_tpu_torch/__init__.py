@@ -13,9 +13,16 @@ and `serving.InferenceServer` (paged prefill + decode tick, bf16 or int8
 KV pool) — and contiguous-cache generation, `models.generate` and
 `models.generate_beam` (bf16 or int8 cache), with the RMSNorm,
 flash-prefill and four decode-attention kernels (contiguous and paged,
-each over a model-dtype or an int8 cache).
+each over a model-dtype or an int8 cache); the prefix cache, chunked
+prefill and speculative verify on the paged server, with the window
+attention kernel; and the Llama training step,
+`parallel.FusedTrainStep` with `gluon.loss.SoftmaxCrossEntropyLoss` and
+`optimizer.SGD`/`Adam`/`AdamW`, with the RMSNorm backward, the flash
+attention backward (dQ, dK/dV) and the fused softmax cross-entropy
+kernels.
 """
-from . import models, serving
+from . import gluon, models, optimizer, parallel, serving
 from .context import resolve_device
 
-__all__ = ["models", "serving", "resolve_device"]
+__all__ = ["gluon", "models", "optimizer", "parallel", "serving",
+           "resolve_device"]

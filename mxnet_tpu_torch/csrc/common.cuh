@@ -81,6 +81,27 @@ __device__ __forceinline__ void store_chunk<int8_t>(float* dst, uint4 raw) {
                         (float)(int8_t)(w[i] >> 24));
 }
 
+// Narrow kVec<T> fp32 values to one 16-byte chunk of T (the inverse of
+// store_chunk), rounding as from_float does.
+template <typename T>
+__device__ __forceinline__ uint4 pack_chunk(const float* v);
+template <>
+__device__ __forceinline__ uint4 pack_chunk<float>(const float* v) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack_chunk<__nv_bfloat16>(const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // element 2i is the low half of word i (little-endian)
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Where token t's row of kv head kh lives in a paged (N, K, bs, d) pool,
 // in rows of d: through the batch row's own block-table row `btb`
 // (physical block ids in logical order).

@@ -1,13 +1,15 @@
-// Causal, key-length-masked GQA attention forward for the prefill:
-// q (B, T, H, d), k/v (B, T, K, d) with H % K == 0, lengths (B,) int32,
-// out (B, T, H, d) in q's dtype. Query head h reads kv head h // (H/K).
-// Keys at or past lengths[b] are masked; a row with no valid key is 0.
+// Causal, key-length-masked GQA attention forward for the prefill and
+// the training step: q (B, T, H, d), k/v (B, T, K, d) with H % K == 0,
+// lengths (B,) int32, out (B, T, H, d) in q's dtype, and optionally the
+// (B, H, T) fp32 log-sum-exp of each row's scaled scores, which the
+// backward (flash_backward.cu) reads. Query head h reads kv head
+// h // (H/K). Keys at or past lengths[b] are masked; a row with no valid
+// key is 0 and its lse +inf (so exp(s - lse) is 0 in the backward).
 //
 // Replaces: mxnet_tpu/kernels/flash_attention.py, the kernel of
-// _pallas_forward (its pallas_call). The TPU kernel only runs when
-// T % 128 == 0 and returns the row log-sum-exp for the backward; this
-// one takes every T, masking the ragged tail itself, and writes no lse
-// (nothing on the serving path reads it).
+// _pallas_forward (its pallas_call; lse as with return_lse=True). The
+// TPU kernel only runs when T % 128 == 0; this one takes every T,
+// masking the ragged tail itself. The serving path passes a null lse.
 //
 // Bound on the H100: at the Llama-3-8B prefill (T = 512, H = 32, K = 8,
 // d = 128, bf16) the causal work is ~2.1 GFLOP against ~10.5 MB moved,
@@ -63,7 +65,8 @@ __device__ __forceinline__ void load_tile(uint4 (&kreg)[NCH],
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
-    flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
+    flash_prefill_kernel(T* __restrict__ out, float* __restrict__ lse,
+                         const T* __restrict__ q,
                          const T* __restrict__ k, const T* __restrict__ v,
                          const int* __restrict__ lengths, int seq, int H,
                          int K, int causal, float scale) {
@@ -198,6 +201,9 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int rr = 0; rr < RPW; ++rr) {
     const int t = q0 + warp * RPW + rr;
     if (t >= seq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((int64_t)b * H + h) * seq + t] =
+          l[rr] > 0.f ? m[rr] + logf(l[rr]) : INFINITY;
     T* orow = out + ((int64_t)b * seq + t) * qstride + (int64_t)h * D;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
@@ -209,30 +215,31 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 template <typename T, int D>
-int launch(void* out, const void* q, const void* k, const void* v,
-           const int* lengths, int B, int seq, int H, int K, int causal,
-           float scale, cudaStream_t stream) {
+int launch(void* out, float* lse, const void* q, const void* k,
+           const void* v, const int* lengths, int B, int seq, int H, int K,
+           int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   const int rc = allow_smem(flash_prefill_kernel<T, D>, smem);
   if (rc) return rc;
   const dim3 grid((seq + BQ - 1) / BQ, H, B);
   flash_prefill_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (T*)out, (const T*)q, (const T*)k, (const T*)v, lengths, seq, H, K,
-      causal, scale);
+      (T*)out, lse, (const T*)q, (const T*)k, (const T*)v, lengths, seq, H,
+      K, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_dim(int D, void* out, const void* q, const void* k,
-                 const void* v, const int* lengths, int B, int seq, int H,
-                 int K, int causal, float scale, cudaStream_t s) {
+int dispatch_dim(int D, void* out, float* lse, const void* q,
+                 const void* k, const void* v, const int* lengths, int B,
+                 int seq, int H, int K, int causal, float scale,
+                 cudaStream_t s) {
   switch (D) {
     case 16:   // llama_tiny
-      return launch<T, 16>(out, q, k, v, lengths, B, seq, H, K, causal,
-                           scale, s);
+      return launch<T, 16>(out, lse, q, k, v, lengths, B, seq, H, K,
+                           causal, scale, s);
     case 128:  // Llama-3-8B
-      return launch<T, 128>(out, q, k, v, lengths, B, seq, H, K, causal,
-                            scale, s);
+      return launch<T, 128>(out, lse, q, k, v, lengths, B, seq, H, K,
+                            causal, scale, s);
     default:
       return MXTT_BAD_ARGUMENT;
   }
@@ -240,18 +247,20 @@ int dispatch_dim(int D, void* out, const void* q, const void* k,
 
 }  // namespace
 
-extern "C" int mxtt_flash_prefill(void* out, const void* q, const void* k,
-                                  const void* v, const int* lengths, int B,
-                                  int seq, int H, int K, int D, int causal,
-                                  float scale, int dtype, void* stream) {
+// lse (B, H, T) float32 may be null
+extern "C" int mxtt_flash_prefill(void* out, float* lse, const void* q,
+                                  const void* k, const void* v,
+                                  const int* lengths, int B, int seq, int H,
+                                  int K, int D, int causal, float scale,
+                                  int dtype, void* stream) {
   if (B <= 0 || seq <= 0) return 0;
   if (K <= 0 || H % K || B > 65535 || H > 65535) return MXTT_BAD_ARGUMENT;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == MXTT_F32)
-    return dispatch_dim<float>(D, out, q, k, v, lengths, B, seq, H, K,
+    return dispatch_dim<float>(D, out, lse, q, k, v, lengths, B, seq, H, K,
                                causal, scale, s);
   if (dtype == MXTT_BF16)
-    return dispatch_dim<__nv_bfloat16>(D, out, q, k, v, lengths, B, seq, H,
-                                       K, causal, scale, s);
+    return dispatch_dim<__nv_bfloat16>(D, out, lse, q, k, v, lengths, B,
+                                       seq, H, K, causal, scale, s);
   return MXTT_BAD_ARGUMENT;
 }

@@ -26,7 +26,7 @@ import torch
 
 __all__ = ["CudaKernel", "load_library", "library_path", "launch_counts",
            "reset_launch_counts", "dtype_code", "check_cuda_tensor",
-           "stream_handle"]
+           "check_no_grad", "stream_handle", "launch", "ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -175,3 +175,27 @@ def check_cuda_tensor(t: torch.Tensor, name: str, device: torch.device,
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(kernel: CudaKernel, device: torch.device, *args):
+    """Launch `kernel` on `device` and its current stream: `args` are the
+    C arguments before the stream (pointers as `ptr` gives them)."""
+    with torch.cuda.device(device):
+        kernel(*args, stream_handle(device))
+
+
+def ptr(t) -> int:
+    """A tensor's data pointer, or NULL for None (an output the caller
+    does not need)."""
+    return 0 if t is None else t.data_ptr()
+
+
+def check_no_grad(name: str, *tensors):
+    """Raise where autograd would need a gradient through `name`, whose
+    kernel has no backward: on the card a launch fills its output through
+    a raw pointer, which would cut the graph without an error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or "
+            f"torch.inference_mode(), or detach its inputs")

@@ -32,8 +32,10 @@ and row w equals a single-position call at valid length valid_lens[:, w]
 reference (which has no in-kernel int8 window) and is plain PyTorch on
 every device.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(d in HEAD_DIMS, q float32 or bfloat16, any S) or raises.
+A CPU tensor takes the plain version (differentiable, as the JAX
+functions are); a CUDA tensor launches the kernel (d in HEAD_DIMS, q
+float32 or bfloat16, any S) or raises, also where autograd would need a
+gradient through it: the decode kernels have no backward.
 """
 from __future__ import annotations
 
@@ -237,13 +239,13 @@ def _check(q, data, scales, valid_len, block_tables=None, window=False):
 
 def _launch(kernel, q, operands, sizes, scale):
     """Allocate the output and launch on q's device and current stream;
-    `operands` are the tensors after out and q, in the C order."""
+    `operands` are the tensors after out and q, in the C order. The
+    kernels have no backward: a gradient through one raises."""
+    _build.check_no_grad(kernel.symbol, q, *operands)
     out = torch.empty_like(q)
-    dev = q.device
-    with torch.cuda.device(dev):
-        kernel(out.data_ptr(), q.data_ptr(),
-               *(t.data_ptr() for t in operands), *sizes, float(scale),
-               _build.dtype_code(q), _build.stream_handle(dev))
+    _build.launch(kernel, q.device, out.data_ptr(), q.data_ptr(),
+                  *(t.data_ptr() for t in operands), *sizes, float(scale),
+                  _build.dtype_code(q))
     return out
 
 

@@ -130,9 +130,12 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, lengths=None):
         """(B, T) token ids -> (B, T, V) logits; int32 `lengths` (B,)
-        masks keys at or past lengths[b]."""
+        masks keys at or past lengths[b]. Under autograd the graph
+        reaches the module's own parameters (the training forward); the
+        RMSNorm and attention kernels then save their statistics for
+        the backward."""
         cfg = self.cfg
-        params = _params_tree(self)
+        params = _params_tree(self, detach=False)
         T = input_ids.shape[1]
         positions = torch.arange(T, device=input_ids.device)
         x = params["embed"][input_ids]

@@ -32,12 +32,13 @@ from . import llama_math
 __all__ = ["generate", "generate_beam", "build_decoder", "_params_tree"]
 
 
-def _params_tree(net):
+def _params_tree(net, detach: bool = True):
     """The decoder weights as a plain dict keyed by role. The tensors are
-    the module's own (detached views), so later weight loads show
-    through without a refresh."""
+    the module's own, as detached views (serving: later weight loads show
+    through without a refresh) or, with `detach=False`, the parameters
+    themselves (the trainable forward)."""
     cfg = net.model.cfg
-    ps = {n: p.detach() for n, p in net.named_parameters()}
+    ps = {n: p.detach() if detach else p for n, p in net.named_parameters()}
     layers = []
     for i in range(cfg.num_layers):
         pre = f"model.layers.{i}."

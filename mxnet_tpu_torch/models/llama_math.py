@@ -7,9 +7,11 @@ prefill and decode tick (`serving/executables.py`) all call these, so
 they cannot drift apart. Functions take (B, T, ...) tensors and a layer
 param dict `lp` with {ln1, wq, wk, wv, wo, ln2, gate, up, down} in the
 dense convention y = x @ W.T. RMSNorm and attention dispatch to the CUDA
-kernels on the card and to their plain versions on the CPU; the large
-projections stay `F.linear` (cuBLAS), as the JAX package left them to
-XLA.
+kernels on the card and to their plain versions on the CPU, through
+their autograd Functions (`RMSNormFunction`, `FlashAttentionFunction`)
+where a gradient is needed, so the training forward and the serving
+programs run the same math; the large projections stay `F.linear`
+(cuBLAS), as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention_forward
+from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_norm import rmsnorm
 
 __all__ = ["rms", "rope_at", "layer_qkv", "swiglu", "layer_finish",
@@ -80,8 +82,8 @@ def decoder_layer(lp, x, positions, eps, base, H, K, d, lengths=None,
     optional int32 `lengths` (B,) masking keys at or past lengths[b].
     The prefill passes return_kv=True to harvest the cache rows."""
     q, k, v = layer_qkv(lp, x, positions, eps, base, H, K, d)
-    att = flash_attention_forward(q, k, v, causal=True,
-                                  scale=1.0 / math.sqrt(d), lengths=lengths)
+    att = flash_attention(q, k, v, causal=True, scale=1.0 / math.sqrt(d),
+                          lengths=lengths)
     out = layer_finish(lp, x, att, eps)
     return (out, k, v) if return_kv else out
 

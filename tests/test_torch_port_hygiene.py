@@ -40,6 +40,11 @@ def test_package_imports_with_jax_blocked():
             "from mxnet_tpu_torch.serving import InferenceServer\n"
             "from mxnet_tpu_torch.serving import NgramProposer, as_proposer\n"
             "from mxnet_tpu_torch.models import get_model\n"
+            "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.optimizer\n"
+            "import mxnet_tpu_torch.parallel\n"
+            "from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss\n"
+            "from mxnet_tpu_torch.optimizer import SGD, Adam, AdamW\n"
+            "from mxnet_tpu_torch.parallel import FusedTrainStep\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n"
             "print('ok')\n")
@@ -117,6 +122,155 @@ def test_window_wrapper_raises_on_the_card_and_never_falls_back(
     with pytest.raises((ValueError, TypeError)):
         fd.flash_decode_paged_window(q, pool, pool, bt, vls)
     assert _build.launch_counts()["mxtt_paged_window"] == 0
+    assert _build._lib is None
+
+
+# -- C1: no route cuts autograd on the card -----------------------------------
+
+META = torch.device("meta")
+
+
+def _decode_operands(route):
+    """Operands of a decode or window wrapper on `meta` tensors standing
+    in for card tensors, q requiring a gradient."""
+    B, H, K, d, W = 2, 4, 2, 16, 3
+    q = torch.empty((B, W, H, d) if route.endswith("window") else (B, H, d),
+                    device=META, requires_grad=True)
+    i32 = dict(dtype=torch.int32, device=META)
+    vl = torch.empty((B, W) if route.endswith("window") else (B,), **i32)
+    paged = "paged" in route
+    shape = (9, K, 8, d) if paged else (B, K, 24, d)
+    if "quantized" in route:
+        c8 = torch.empty(shape, dtype=torch.int8, device=META)
+        sc = torch.empty(shape[:3] + (1,), device=META)
+        cache = (c8, sc, c8, sc)
+    else:
+        cache = (torch.empty(shape, device=META),) * 2
+    tables = (torch.empty(B, 4, **i32),) if paged else ()
+    return (q,) + cache + tables + (vl,)
+
+
+DECODE_ROUTES = ["flash_decode", "flash_decode_quantized",
+                 "flash_decode_paged", "flash_decode_paged_quantized",
+                 "flash_decode_paged_window"]
+
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """Launches on `meta` tensors recorded by symbol (and counted), never
+    sent to a library."""
+    from mxnet_tpu_torch.kernels import _build
+    launched = []
+
+    def launch(kernel, device, *args):
+        launched.append(kernel.symbol)
+        kernel.launches += 1
+    monkeypatch.setattr(_build, "launch", launch)
+    _build.reset_launch_counts()
+    return launched
+
+
+@pytest.mark.parametrize("route", DECODE_ROUTES)
+def test_decode_routes_raise_where_autograd_needs_a_gradient(route,
+                                                             stub_launch):
+    """The decode and window kernels have no backward: with grad enabled
+    and an input requiring a gradient the wrapper raises before any
+    launch; under no_grad the same call launches once."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    ops = _decode_operands(route)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        getattr(fd, route)(*ops)
+    assert stub_launch == []
+    with torch.no_grad():
+        out = getattr(fd, route)(*ops)
+    assert len(stub_launch) == 1 and out.grad_fn is None
+
+
+@pytest.mark.parametrize("route", ["rmsnorm", "flash_attention",
+                                   "softmax_ce"])
+def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
+    """The training step's kernels go through their autograd Functions on
+    the card: the output has the Function's grad_fn, and a backward
+    launches the backward kernels and reaches every input with its own
+    shape."""
+    from mxnet_tpu_torch.kernels import flash_attention, fused_ce, fused_norm
+    g = dict(device=META, requires_grad=True)
+    if route == "rmsnorm":
+        ins = (torch.empty(2, 3, 64, **g), torch.empty(64, **g))
+        out = fused_norm.rmsnorm(*ins, 1e-5)
+        want = ["mxtt_rmsnorm", "mxtt_rmsnorm_dx"]
+    elif route == "flash_attention":
+        ins = (torch.empty(1, 8, 4, 16, **g), torch.empty(1, 8, 2, 16, **g),
+               torch.empty(1, 8, 2, 16, **g))
+        out = flash_attention.flash_attention(*ins)
+        want = ["mxtt_flash_prefill", "mxtt_flash_bwd_dq",
+                "mxtt_flash_bwd_dkv"]
+    else:
+        ins = (torch.empty(4, 1024, **g),)
+        out = fused_ce.softmax_ce(
+            ins[0], torch.empty(4, dtype=torch.int64, device=META))
+        want = ["mxtt_ce_fwd", "mxtt_ce_bwd"]
+    assert type(out.grad_fn).__name__.endswith("FunctionBackward")
+    assert stub_launch == want[:1]
+    out.backward(torch.ones_like(out))
+    assert stub_launch == want
+    for t in ins:
+        assert t.grad is not None and t.grad.shape == t.shape
+
+
+@pytest.mark.parametrize("bad", ["rms_gamma_dtype", "rms_dx_rrms_rows",
+                                 "fwd_lse_head_dim", "dq_lse_shape",
+                                 "dkv_delta_dtype", "dkv_strided_dout",
+                                 "ce_labels_dtype", "ce_bwd_dloss_rows"])
+def test_training_wrappers_raise_on_the_card_and_never_fall_back(
+        bad, monkeypatch):
+    """Each wrapper of the training step's kernels, on `meta` tensors
+    standing in for card tensors, raises on an operand its kernel does
+    not take: no launch, no library, and the plain version never
+    called."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_ce, fused_norm
+
+    def fell_back(*a, **k):
+        raise AssertionError("fell back to the plain version")
+    for mod, names in ((fused_norm, ("rmsnorm_fwd_ref", "rmsnorm_dx_ref")),
+                       (fa, ("reference_attention",
+                             "reference_attention_lse", "flash_bwd_dq_ref",
+                             "flash_bwd_dkv_ref")),
+                       (fused_ce, ("ce_fwd_ref", "ce_bwd_ref"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, fell_back)
+    _build.reset_launch_counts()
+    f32 = dict(device=META)
+    x = torch.empty(6, 64, **f32)
+    g32 = torch.empty(64, **f32)
+    d = 64 if bad == "fwd_lse_head_dim" else 16
+    q = torch.empty(2, 8, 4, d, **f32)
+    k = torch.empty(2, 8, 2, d, **f32)
+    stats = torch.empty(2, 4, 8, **f32)
+    dout = torch.empty(2, 4, 8, d, **f32).transpose(1, 2) \
+        if bad == "dkv_strided_dout" else q
+    lbl = torch.empty(6, dtype=torch.int64 if bad == "ce_labels_dtype"
+                      else torch.int32, device=META)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "rms_gamma_dtype":
+            fused_norm.rmsnorm_fwd(x, g32.bfloat16(), 1e-5)
+        elif bad == "rms_dx_rrms_rows":
+            fused_norm.rmsnorm_dx(x, g32, torch.empty(5, **f32), x)
+        elif bad == "fwd_lse_head_dim":
+            fa.flash_attention_forward(q, k, k, return_lse=True)
+        elif bad == "dq_lse_shape":
+            fa.flash_bwd_dq(q, k, k, q, torch.empty(2, 8, 4, **f32), stats)
+        elif bad in ("dkv_delta_dtype", "dkv_strided_dout"):
+            delta = stats.double() if bad == "dkv_delta_dtype" else stats
+            fa.flash_bwd_dkv(q, k, k, dout, stats, delta)
+        elif bad == "ce_labels_dtype":
+            fused_ce.ce_fwd(x, lbl)
+        else:
+            fused_ce.ce_bwd(x, lbl, torch.empty(6, **f32),
+                            torch.empty(5, **f32))
+    assert all(n == 0 for n in _build.launch_counts().values())
     assert _build._lib is None
 
 

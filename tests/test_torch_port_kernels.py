@@ -197,10 +197,24 @@ def test_cpu_tensors_launch_nothing():
     c = gather_kv_pages(T_(kp), T_(bt))
     flash_decode(T_(q2), c, c, T_(vl))
     flash_decode_quantized(T_(q2), *quantize_kv(c, c), T_(vl))
+    # the training step's kernels: forward statistics and backwards
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+    from mxnet_tpu_torch.kernels import fused_ce, fused_norm
+    _, rrms = fused_norm.rmsnorm_fwd(x, torch.ones(64), 1e-5)
+    fused_norm.rmsnorm_dx(x, torch.ones(64), rrms, x)
+    k1 = q[:, :, :1].contiguous()
+    out, lse = flash_attention_forward(q, k1, k1, return_lse=True)
+    delta = tfa.attention_delta(out, q)
+    tfa.flash_bwd_dq(q, k1, k1, q, lse, delta)
+    tfa.flash_bwd_dkv(q, k1, k1, q, lse, delta)
+    lbl = torch.tensor([1, 0, 63, 5], dtype=torch.int32)
+    loss, lse = fused_ce.ce_fwd(x, lbl)
+    fused_ce.ce_bwd(x, lbl, lse, loss)
     assert set(_build.launch_counts()) == {
         "mxtt_rmsnorm", "mxtt_flash_prefill", "mxtt_paged_decode",
         "mxtt_paged_decode_q8", "mxtt_contig_decode", "mxtt_contig_decode_q8",
-        "mxtt_paged_window"}
+        "mxtt_paged_window", "mxtt_rmsnorm_dx", "mxtt_flash_bwd_dq",
+        "mxtt_flash_bwd_dkv", "mxtt_ce_fwd", "mxtt_ce_bwd"}
     assert all(n == 0 for n in _build.launch_counts().values())
     assert _build._lib is None
 
@@ -216,7 +230,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_library_key_covers_every_source():
     srcs = {p.name for p in _build._sources()}
     assert {"common.cuh", "rmsnorm.cu", "flash_prefill.cu",
-            "decode_attention.cu", "status.cu"} <= srcs
+            "flash_backward.cu", "fused_ce.cu", "decode_attention.cu",
+            "window_attention.cu", "status.cu"} <= srcs
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()          # stable key
