@@ -22,7 +22,16 @@ exits non-zero and prints no result:
    ragged and a tiny fp32 case with an empty row, a backward off by one
    at the diagonal falling outside the tolerances, and the fused CE
    forward and backward (N=4096, V=32000) with a label off by one
-   falling outside them.
+   falling outside them. Then BERT's kernels: the LayerNorm forward
+   (with and without mu and rstd) and dx at BERT-base's rows (4096 x
+   768 bf16), BERT-large's (4096 x 1024), transformer_base's (4096 x 512
+   fp32), ragged, unaligned and block-per-row cases, rows offset so that
+   the centred variance matters, the neighbouring row's statistics and
+   dx without its xhat term falling outside the tolerances; and the
+   attention forward with lse, dq and dkv at BERT-base's self-attention
+   (B=32, T=128, H=K=12, d=64, full, key padding from lengths in
+   [64, 128]) and a small fp32 case, lengths off by one falling outside
+   the tolerances, timed beside SDPA with a key-padding mask.
 3. serve: Llama-3-8B at full width (vocab 32000, D 4096, I 14336, 32
    layers, 32 heads / 8 kv heads, bf16; random weights from a seed)
    behind `InferenceServer(batch_slots=8, block_size=16, max_len=2048,
@@ -62,11 +71,29 @@ exits non-zero and prints no result:
    dx 2L + 1 each, attention forward, dq and dkv L each, CE forward and
    backward 1 each), finite and strictly falling losses; train tokens/s
    over steps 2-5; one more step's card time by kernel family.
-6. the kernels line (JSON), the card line, and the result line
+6. bert: BERT-base (vocab 30522, 768 units, 12 layers, 12 heads, bf16
+   by `amp.convert_block`, random weights from the seed) behind
+   `FusedTrainStep(n_model_inputs=3)` with AdamW (lr 1e-4, wd 0.01,
+   multi_precision=True) and bench.py's masked-MLM plus NSP loss, one
+   batch of B=32 x T=128 (valid_length 64-128, 15% MLM mask), dropout
+   0.1 from a seeded generator: one step's gradients through the kernels
+   held per parameter against the plain versions' and an fp32 copy's
+   (the generator reseeded for each, so all draw the same masks); five
+   steps with exact launch counts per step (LayerNorm and its dx 26
+   each, attention forward, dq and dkv 12 each, CE 1 and 1), finite
+   losses, the fifth below the first; samples/s over steps 2-5; one more
+   step's card time by kernel family.
+7. transformer: transformer_base (bf16 weights) on B=32, src and tgt
+   T=128 with src_valid_len from the seed: the gradient check as in
+   phase 6, then one step with exact launch counts (LayerNorm and its dx
+   32 each, CE 1 and 1, attention kernels 0: every attention of the
+   Transformer carries a mask) and a finite loss.
+8. the kernels line (JSON), the card line, and the result line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -720,12 +747,12 @@ def kernel_rmsnorm_train(torch, F, flush):
 
 
 def attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale, lengths,
-                       diag=0):
+                       diag=0, causal=True, terms=True):
     """fp32 (dq, dk, dv) of attention from the forward's lse and delta,
-    keys kept where s < lengths[b] and s <= t + diag (a kernel off by
-    one at the diagonal for diag = +-1), GQA groups summed; and, for
-    diag = 0, the scale of each output's terms (sums of |terms|), the
-    scale of its fp32 rounding."""
+    keys kept where s < lengths[b] and, if causal, s <= t + diag (a
+    kernel off by one at the diagonal for diag = +-1), GQA groups
+    summed; and, with `terms` and diag = 0, the scale of each output's
+    terms (sums of |terms|), the scale of its fp32 rounding."""
     B, T, H, d = q.shape
     K = k.shape[2]
     rep = H // K
@@ -733,8 +760,9 @@ def attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale, lengths,
     vf = v.float().repeat_interleave(rep, dim=2)
     qf, dof = q.float(), dout.float()
     j = torch.arange(T, device=q.device)
-    keep = (j[None, :] < lengths[:, None].long())[:, None, None, :] \
-        & (j[None, :] <= j[:, None] + diag)[None, None]
+    keep = (j[None, :] < lengths[:, None].long())[:, None, None, :]
+    if causal:
+        keep = keep & (j[None, :] <= j[:, None] + diag)[None, None]
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     del s, keep
@@ -746,7 +774,7 @@ def attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale, lengths,
     grads = (torch.einsum("bhts,bshd->bthd", ds, kf) * scale,
              group(torch.einsum("bhts,bthd->bshd", ds, qf)) * scale,
              group(torch.einsum("bhts,bthd->bshd", p, dof)))
-    if diag:
+    if diag or not terms:
         return grads, None
     del ds
     mag = p * (torch.einsum("bthd,bshd->bhts", dof.abs(), vf.abs())
@@ -992,6 +1020,281 @@ def kernel_ce(torch, F, flush):
         del x, dx, dx_ref
         torch.cuda.empty_cache()
     return fwd_entry, bwd_entry
+
+
+# -- phase 2c: BERT's kernels at the bert phase's shapes ----------------------
+
+#: the bert phase (phase 6): BERT-base, B=32 x T=128, vocab 30522
+BERT_B, BERT_T, BERT_VOCAB = 32, 128, 30522
+BERT_ROWS = BERT_B * BERT_T           # rows of every LayerNorm
+
+
+def ln_inputs(torch, gen, n, d, dtype):
+    """x (n, d) with a per-row offset (so the centred variance matters),
+    gamma, beta and dy."""
+    x = (2 * torch.randn(n, d, generator=gen, device="cuda")
+         + 4 * torch.randn(n, 1, generator=gen, device="cuda")).to(dtype)
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    return x, g, b, dy
+
+
+def kernel_layernorm(torch, F, flush):
+    """The LayerNorm forward (with and without its statistics) and dx
+    kernels against their plain versions at BERT-base's rows (4096 x 768
+    bf16), BERT-large's (4096 x 1024), transformer_base's (4096 x 512,
+    fp32: its activations are fp32), ragged and unaligned rows and a row
+    wider than a warp's. Returns the forward and dx entries."""
+    from mxnet_tpu_torch.kernels.fused_norm import (
+        layernorm_dx, layernorm_dx_ref, layernorm_fwd, layernorm_fwd_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    eps = 1e-5
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (("bert_base", BERT_ROWS, 768, bf16),
+             ("bert_large", BERT_ROWS, 1024, bf16),
+             ("transformer_base fp32", BERT_ROWS, 512, f32),
+             ("ragged", 37, 768, bf16),
+             ("unaligned fp32", 37, 771, f32),
+             ("block per row", 37, 4096, bf16))
+    fwd_entry = dx_entry = None
+    for label, n, d, dtype in cases:
+        x, g, b, dy = ln_inputs(torch, gen, n, d, dtype)
+        out, mu, rstd = layernorm_fwd(x, g, b, eps)
+        bare, no_mu, no_rstd = layernorm_fwd(x, g, b, eps, with_stats=False)
+        ref, mu_ref, rstd_ref = layernorm_fwd_ref(x, g, b, eps)
+        dx = layernorm_dx(x, g, mu, rstd, dy)
+        dx_ref = layernorm_dx_ref(x, g, mu, rstd, dy)
+        torch.cuda.synchronize()
+        check(no_mu is None and no_rstd is None and torch.equal(bare, out),
+              f"layernorm {label}: the forward without statistics differs")
+        xs = x.float()
+        mabs = xs.abs().mean(dim=-1)
+        # mu: both sum d values in fp32 in another order, each in a
+        # chain under 40 deep: under 2^-19 of the row's mean |x|; 2^-17
+        # leaves 4x headroom and stays far under a row's own offset
+        _, mtext = held(torch, f"layernorm mu {label}", mu, mu_ref,
+                        2.0 ** -17 * mabs)
+        # rstd: a d-term fp32 sum of squares (as rrms, rmsnorm_train)
+        _, rtext = held(torch, f"layernorm rstd {label}", rstd, rstd_ref,
+                        2.0 ** -16 * rstd_ref)
+        # out = (x - mu) rstd g + b: mu's and rstd's error carried through
+        # and the fp32 rounding of the terms, rounded once to x's dtype
+        # (one bf16 step of |ref|)
+        xc = (xs - mu_ref[:, None]).abs()
+        tol = 2.0 ** -16 * (rstd_ref[:, None] * g.abs()
+                            * (mabs[:, None] + xc) + b.abs())
+        if dtype == bf16:
+            tol = tol + BF16_STEP * ref.float().abs()
+        err, otext = held(torch, f"layernorm {label}", out, ref, tol)
+        # dx = rstd (wdy - mean(wdy) - xhat mean(wdy xhat)): two d-term
+        # means in another order (fp32 noise of the terms' scale), one
+        # rounding (one bf16 step of |ref|)
+        r = rstd[:, None]
+        xhat = (xs - mu[:, None]) * r
+        wdy = dy.float() * g
+        m1 = wdy.mean(dim=-1, keepdim=True)
+        m2 = (wdy * xhat).mean(dim=-1, keepdim=True)
+        dtol = FP32_NOISE * r * (wdy.abs() + m1.abs() + (xhat * m2).abs())
+        if dtype == bf16:
+            dtol = dtol + BF16_STEP * dx_ref.float().abs()
+        derr, dtext = held(torch, f"layernorm_dx {label}", dx, dx_ref, dtol)
+        line = f"[kernels] layernorm {label} {tuple(x.shape)} {dtype}: out " \
+               f"{otext}; mu {mtext}; rstd {rtext}; dx {dtext}"
+        if label == "bert_base":
+            # the neighbouring row's statistics, and dx without its
+            # xhat * mean(wdy xhat) term, would fail the same tolerances
+            nb = ((xs - mu.roll(1)[:, None]) * rstd.roll(1)[:, None] * g
+                  + b).to(dtype)
+            short = (r * (wdy - m1)).to(dtype)
+            line += "; wrong: " + ", ".join((
+                caught(torch, "layernorm neighbour's stats", nb, ref, tol),
+                caught(torch, "layernorm_dx without its xhat term", short,
+                       dx_ref, dtol)))
+            del nb, short
+        if label in ("bert_base", "bert_large"):
+            ms = cold_ms(torch, lambda: layernorm_fwd(x, g, b, eps), flush)
+            bare_ms = cold_ms(torch, lambda: layernorm_fwd(
+                x, g, b, eps, with_stats=False), flush)
+            plain = cold_ms(torch, lambda: layernorm_fwd_ref(x, g, b, eps),
+                            flush)
+            gx, bx = g.to(dtype), b.to(dtype)
+            lib = cold_ms(torch, lambda: F.layer_norm(x, (d,), gx, bx, eps),
+                          flush)
+            dms = cold_ms(torch, lambda: layernorm_dx(x, g, mu, rstd, dy),
+                          flush)
+            dplain = cold_ms(torch, lambda: layernorm_dx_ref(
+                x, g, mu, rstd, dy), flush)
+            # yardstick: the backward of F.layer_norm for x alone, its
+            # forward graph built once and kept
+            xr = x.detach().requires_grad_()
+            y = F.layer_norm(xr, (d,), gx, bx, eps)
+            dlib = cold_ms(torch, lambda: torch.autograd.grad(
+                y, xr, dy, retain_graph=True), flush)
+            xb = x.numel() * x.element_size()
+            # each input read once, each output written once; about 8
+            # fp32 operations an element forward, 10 backward
+            f_ms, f_by = bound(2 * xb + 2 * d * 4 + 2 * n * 4,
+                               8 * x.numel(), "fp32")
+            d_ms, d_by = bound(3 * xb + d * 4 + 2 * n * 4, 10 * x.numel(),
+                               "fp32")
+            line += f"; forward (writing mu, rstd) ms={ms:.4f} (without " \
+                    f"{bare_ms:.4f}) plain_ms={plain:.4f} library_ms=" \
+                    f"{lib:.4f} (F.layer_norm) bound_ms={f_ms:.4f} " \
+                    f"({f_by}); dx ms={dms:.4f} plain_ms={dplain:.4f} " \
+                    f"library_ms={dlib:.4f} (F.layer_norm backward) " \
+                    f"bound_ms={d_ms:.4f} ({d_by})"
+            if label == "bert_base":
+                shape = f"x {tuple(x.shape)} bf16"
+                fwd_entry = dict(name="layernorm", max_abs_err=err, ms=ms,
+                                 plain_ms=plain, library_ms=lib,
+                                 bound_ms=f_ms, bound_by=f_by,
+                                 shape=shape + ", writing mu and rstd",
+                                 no_stats_ms=bare_ms)
+                dx_entry = dict(name="layernorm_dx", max_abs_err=derr,
+                                ms=dms, plain_ms=dplain, library_ms=dlib,
+                                bound_ms=d_ms, bound_by=d_by,
+                                shape=f"x, dy {tuple(x.shape)} bf16")
+            del xr, y
+        print(line, flush=True)
+    return fwd_entry, dx_entry
+
+
+def kernel_flash_bert(torch, F, flush):
+    """The attention forward with its lse and the dq and dkv kernels at
+    BERT-base's self-attention (B=32, T=128, H=K=12, d=64, full, key
+    padding from lengths drawn from the seed in [64, 128], bf16) and a
+    small fp32 case, against their plain versions; lengths off by one
+    must fall outside the tolerances. Returns the "bert" times of the
+    forward, dq and dkv rows."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    main_lens = np.random.RandomState(SEED + 13).randint(
+        BERT_T // 2, BERT_T + 1, BERT_B).tolist()
+    cases = (("bert_base", BERT_B, BERT_T, 12, 64, main_lens,
+              torch.bfloat16),
+             ("small fp32", 2, 77, 2, 64, [77, 30], torch.float32))
+    times = None
+    for label, B, T, H, d, lens, dtype in cases:
+        q, k, v, dout = (torch.randn(B, T, H, d, generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(4))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_forward(q, k, v, False, scale, lengths,
+                                              return_lse=True)
+        ref, lse_ref = fa.reference_attention_lse(q, k, v, False, scale,
+                                                  lengths)
+        delta = fa.attention_delta(out, dout)
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, False, scale,
+                             lengths)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, False, scale,
+                                  lengths)
+        dq_ref = fa.flash_bwd_dq_ref(q, k, v, dout, lse, delta, False, scale,
+                                     lengths)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta,
+                                              False, scale, lengths)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        # as kernel_flash_train, with every key below lengths[b] kept
+        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
+                                                 lengths, False), v, H)
+        tol = FP32_NOISE * pv_abs
+        if bf16:
+            tol = tol + BF16_STEP * ref.float().abs() + BF16_ROUND * pv_abs
+        err_f, otext = held(torch, f"flash_fwd {label}", out, ref, tol)
+        _, ltext = held(torch, f"flash_fwd lse {label}", lse, lse_ref,
+                        FP32_NOISE * (1 + lse_ref.abs()))
+        (_, terms) = attn_backward_fp32(torch, q, k, v, dout, lse, delta,
+                                        scale, lengths, causal=False)
+        tols = [FP32_NOISE * t + (BF16_STEP * r.float().abs() if bf16 else 0)
+                for t, r in zip(terms, (dq_ref, dk_ref, dv_ref))]
+        del terms
+        errs, texts = zip(*(held(torch, f"flash_{n} {label}", o, r, t)
+                            for n, o, r, t in zip(
+                                ("dq", "dk", "dv"), (dq, dk, dv),
+                                (dq_ref, dk_ref, dv_ref), tols)))
+        line = f"[kernels] flash full attention {label} B={B} T={T} H=K={H} " \
+               f"d={d} lengths={lens} {dtype}: out {otext}; lse {ltext}; " \
+               + "; ".join(f"{n} {t}" for n, t in zip(("dq", "dk", "dv"),
+                                                      texts))
+        if label == "bert_base":
+            # each row seeing one key more or one fewer past its length
+            wrong = []
+            for off in (-1, 1):
+                wl = lengths + off
+                wrong.append(caught(
+                    torch, f"flash_fwd lengths{off:+d}",
+                    fa.reference_attention(q, k, v, False, scale, wl), ref,
+                    tol))
+                grads, _ = attn_backward_fp32(torch, q, k, v, dout, lse,
+                                              delta, scale, wl,
+                                              causal=False, terms=False)
+                wrong += [caught(torch, f"flash_{n} lengths{off:+d}",
+                                 w.to(dtype), r, t)
+                          for n, w, r, t in zip(("dq", "dk", "dv"), grads,
+                                                (dq_ref, dk_ref, dv_ref),
+                                                tols)]
+                del grads
+            line += "; lengths off by one: " + ", ".join(wrong)
+            ms = cold_ms(torch, lambda: fa.flash_attention_forward(
+                q, k, v, False, scale, lengths, return_lse=True), flush)
+            plain = cold_ms(torch, lambda: fa.reference_attention_lse(
+                q, k, v, False, scale, lengths), flush, reps=10)
+            dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
+                q, k, v, dout, lse, delta, False, scale, lengths), flush)
+            dkv_ms = cold_ms(torch, lambda: fa.flash_bwd_dkv(
+                q, k, v, dout, lse, delta, False, scale, lengths), flush)
+            dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
+                q, k, v, dout, lse, delta, False, scale, lengths), flush,
+                reps=10)
+            dkv_plain = cold_ms(torch, lambda: fa.flash_bwd_dkv_ref(
+                q, k, v, dout, lse, delta, False, scale, lengths), flush,
+                reps=10)
+            # SDPA with the same key padding as a boolean (B, 1, 1, S) mask
+            keep = (torch.arange(T, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                          for a in (q, k, v))
+            lib = cold_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep), flush)
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=keep)
+            do_t = dout.transpose(1, 2)
+            lib_bwd = cold_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_t, retain_graph=True), flush)
+            # this run's work: every query row attends lengths[b] keys;
+            # per pair 4d flops forward, 6d dq, 8d dkv
+            pairs = sum(T * L for L in lens)
+            qb = q.numel() * q.element_size()
+            stats = 2 * B * H * T * 4
+            f_ms, f_by = bound(4 * qb + B * H * T * 4, pairs * H * 4 * d,
+                               "bf16")
+            q_ms, q_by = bound(5 * qb + stats, pairs * H * 6 * d, "bf16")
+            k_ms, k_by = bound(6 * qb + stats, pairs * H * 8 * d, "bf16")
+            line += f"; forward+lse ms={ms:.4f} plain_ms={plain:.4f} " \
+                    f"library_ms={lib:.4f} (SDPA, key-padding mask) " \
+                    f"bound_ms={f_ms:.4f} ({f_by}); dq ms={dq_ms:.4f} " \
+                    f"plain_ms={dq_plain:.4f} bound_ms={q_ms:.4f} ({q_by});" \
+                    f" dkv ms={dkv_ms:.4f} plain_ms={dkv_plain:.4f} " \
+                    f"bound_ms={k_ms:.4f} ({k_by}); SDPA backward (dq, dk, " \
+                    f"dv together) library_ms={lib_bwd:.4f}"
+            shape = f"B={B} T={T} H=K={H} d={d} full, lengths " \
+                    f"{min(lens)}-{max(lens)} bf16"
+            times = (dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=f_ms, bound_by=f_by, max_abs_err=err_f,
+                          shape=shape + ", writing lse"),
+                     dict(ms=dq_ms, plain_ms=dq_plain, library_ms=lib_bwd,
+                          bound_ms=q_ms, bound_by=q_by, max_abs_err=errs[0],
+                          shape=shape),
+                     dict(ms=dkv_ms, plain_ms=dkv_plain, library_ms=lib_bwd,
+                          bound_ms=k_ms, bound_by=k_by,
+                          max_abs_err=max(errs[1:]), shape=shape))
+            del o_lib, qt, kt, vt
+        print(line, flush=True)
+        del q, k, v, dout, out, ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+    return times
 
 
 # -- phase 3: serve -----------------------------------------------------------
@@ -1719,47 +2022,119 @@ def generate_phase(torch, net, prompts):
 GRAD_FLOOR = 2.0 ** -7
 
 
-def plain_train_loss(torch, F, net, x, y):
-    """The train step's loss through the plain versions of every kernel
-    (RMSNorm, attention with P cast to v's dtype, the CE), in the net's
-    own dtype, for torch autograd to differentiate."""
-    from mxnet_tpu_torch.kernels.fused_ce import ce_fwd_ref
-    from mxnet_tpu_torch.kernels.flash_attention import reference_attention
-    from mxnet_tpu_torch.kernels.fused_norm import rmsnorm_ref
-    from mxnet_tpu_torch.models.llama_infer import _params_tree
-    from mxnet_tpu_torch.models.llama_math import rope_at, swiglu
-    cfg = net.cfg
-    p = _params_tree(net, detach=False)
-    H, K, d, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps
-    B, T = x.shape
-    pos = torch.arange(T, device=x.device)
-    h = p["embed"][x]
-    for lp in p["layers"]:
-        a = rmsnorm_ref(h, lp["ln1"], eps)
-        q = rope_at(F.linear(a, lp["wq"]).reshape(B, T, H, d), pos,
-                    cfg.rope_base)
-        k = rope_at(F.linear(a, lp["wk"]).reshape(B, T, K, d), pos,
-                    cfg.rope_base)
-        v = F.linear(a, lp["wv"]).reshape(B, T, K, d)
-        att = reference_attention(q, k, v, True, 1.0 / math.sqrt(d))
-        h = h + F.linear(att.reshape(B, T, -1), lp["wo"])
-        h = h + swiglu(rmsnorm_ref(h, lp["ln2"], eps), lp["gate"],
-                       lp["up"], lp["down"])
-    logits = F.linear(rmsnorm_ref(h, p["norm"], eps), p["head"])
-    return ce_fwd_ref(logits.reshape(B * T, -1), y.reshape(-1))[0] \
-        .mean().float()
-
-
 def rel_l2(torch, a, b):
     """||a - b|| / ||b|| in fp32."""
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def train_breakdown(torch, step, x, y, wall):
+def hold_gradients(torch, label, names, g_k, g_p, g_32, loss_k, loss_32):
+    """Per parameter: the kernel path's gradient (g_k) within
+    max(GRAD_FLOOR, 2 x the plain path's relative L2 distance) of the
+    fp32 copy's (g_32); g_p is the plain versions' in the net's own
+    dtype. An attention's key-projection bias has an exact gradient of
+    zero (adding one value to every key's score leaves the softmax
+    unchanged), so its computed gradients are rounding noise and have no
+    relative distance: its distances are taken relative to the norm of
+    the same attention's value-projection bias gradient, a sum over the
+    same key rows of the same backward."""
+    ref = dict(zip(names, g_32))
+    rows = []
+    for n, a, b, c in zip(names, g_k, g_p, g_32):
+        if n.endswith("key_proj.bias"):
+            scale = ref[n[:-len("key_proj.bias")] + "value_proj.bias"] \
+                .float().norm().clamp(min=1e-30)
+            rk, rp = (float((x.float() - c.float()).norm() / scale)
+                      for x in (a, b))
+        else:
+            rk, rp = rel_l2(torch, a, c), rel_l2(torch, b, c)
+        rows.append((rk / max(GRAD_FLOOR, 2 * rp), n, rk, rp))
+    worst = sorted(rows, reverse=True)
+    bad = [r for r in rows if r[0] > 1]
+    check(not bad, f"{label}: gradients beyond max(floor, 2 x plain) from "
+                   "fp32: " + ", ".join(f"{n} {rk:.4g} (plain {rp:.4g})"
+                                        for _, n, rk, rp in bad))
+    print(f"[{label}] one step's gradients, relative L2 from the fp32 "
+          f"copy's plain-path gradients, per parameter: kernel path within "
+          f"max({GRAD_FLOOR:.4g}, 2 x the plain path's) for all "
+          f"{len(rows)}; loss kernel {float(loss_k):.5f}, fp32 "
+          f"{float(loss_32):.5f}; closest to the bound: " + ", ".join(
+              f"{n} {rk:.4g} (plain {rp:.4g})" for _, n, rk, rp in worst[:4])
+          + f"; kernel-path distances {min(r[2] for r in rows):.4g}-"
+          f"{max(r[2] for r in rows):.4g}, plain-path "
+          f"{min(r[3] for r in rows):.4g}-{max(r[3] for r in rows):.4g}, "
+          f"largest ratio to the bound {worst[0][0]:.3f}", flush=True)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The kernel entry points the training paths call (RMSNorm,
+    LayerNorm, attention, softmax CE), swapped for their plain versions
+    while the block runs: torch autograd then differentiates the plain
+    forward. The models and the loss look each up in its module at call
+    time."""
+    from mxnet_tpu_torch.kernels import fused_ce, fused_norm
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+
+    def attention(q, k, v, causal=True, scale=None, lengths=None):
+        return fa.reference_attention(q, k, v, causal, scale, lengths)
+
+    def softmax_ce(x, labels):
+        return fused_ce.ce_fwd_ref(x, labels)[0]
+    swaps = ((fused_norm, "rmsnorm", fused_norm.rmsnorm_ref),
+             (fused_norm, "layernorm", fused_norm.layernorm_ref),
+             (fa, "flash_attention", attention),
+             (fused_ce, "softmax_ce", softmax_ce))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def grads_three_ways(torch, label, step, step32, gen, batch, per_step):
+    """One step's gradients through the kernels (exact launch counts),
+    through the plain versions in the net's dtype and through the plain
+    versions of an fp32 copy of the same weights, the dropout generator
+    (if the net has one) reseeded before each so that all three draw the
+    same masks; held per parameter by `hold_gradients`."""
+    def reseed():
+        if gen is not None:
+            gen.manual_seed(SEED)
+    from mxnet_tpu_torch.kernels import _build
+    net, net32 = step.net, step32.net
+    _build.reset_launch_counts()
+    reseed()
+    loss_k, g_k = step.loss_and_grads(*batch)
+    torch.cuda.synchronize()
+    expect_launches(_build.launch_counts(), per_step, f"{label} gradients")
+    names = [n for n, _ in net.named_parameters()]
+    params = list(net.parameters())
+    with torch.no_grad():
+        for p32, p in zip(net32.parameters(), params):
+            p32.copy_(p)
+    _build.reset_launch_counts()
+    with plain_kernels():
+        reseed()
+        g_p = torch.autograd.grad(step.loss_of(*batch), params)
+        reseed()
+        loss_32 = step32.loss_of(*batch)
+        g_32 = torch.autograd.grad(loss_32, list(net32.parameters()))
+    torch.cuda.synchronize()
+    expect_launches(_build.launch_counts(), {}, f"{label} plain paths")
+    hold_gradients(torch, label, names, [g.float() for g in g_k],
+                   [g.float() for g in g_p], g_32, loss_k, loss_32.detach())
+    del g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+
+def train_breakdown(torch, step, args, wall, label="train"):
     """One step's card time by kernel family (torch.profiler): the
-    forward and backward (`loss_and_grads`) split by kernel, the update
-    (`apply_update`) as the optimizer's; the card's idle share of
+    forward and backward (`loss_and_grads(*args)`) split by kernel, the
+    update (`apply_update`) as the optimizer's; the card's idle share of
     `wall`, the median step's wall time (host clock, no profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1767,6 +2142,8 @@ def train_breakdown(torch, step, x, y, wall):
     # (part of the CUDA kernel's name, family)
     fam_of = (("rmsnorm_dx_kernel", "rmsnorm_dx"),
               ("rmsnorm_kernel", "rmsnorm"),
+              ("layernorm_dx_kernel", "layernorm_dx"),
+              ("layernorm_kernel", "layernorm"),
               ("flash_bwd_dq_kernel", "flash_bwd_dq"),
               ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
               ("flash_prefill_kernel", "flash_fwd"),
@@ -1795,18 +2172,18 @@ def train_breakdown(torch, step, x, y, wall):
             fam[key] = fam.get(key, 0.0) + us / 1e3
         return out, fam
 
-    (_, grads), fam = busy(lambda: step.loss_and_grads(x, y), True)
+    (_, grads), fam = busy(lambda: step.loss_and_grads(*args), True)
     _, fam_opt = busy(lambda: step.apply_update(grads), False)
     fam.update(fam_opt)
     total = sum(fam.values())
     if total <= 0:
-        print(f"[train] one step: wall {wall:.1f} ms; card busy time not "
+        print(f"[{label}] one step: wall {wall:.1f} ms; card busy time not "
               f"measured (torch.profiler recorded no device time)",
               flush=True)
         return
     parts = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(fam.items(), key=lambda kv: -kv[1]))
-    print(f"[train] one step: wall {wall:.1f} ms (median of steps 2-5, "
+    print(f"[{label}] one step: wall {wall:.1f} ms (median of steps 2-5, "
           f"host clock); card busy {total:.1f} ms (one more step under "
           f"torch.profiler) = {100 * total / wall:.1f}% of it (idle "
           f"{100 * max(0.0, 1 - total / wall):.1f}%); busy ms by family: "
@@ -1855,47 +2232,12 @@ def train_phase(torch, F, card):
                 "mxtt_flash_bwd_dkv": L, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
 
     # one step's gradients three ways, before any update
-    _build.reset_launch_counts()
-    loss_k, g_k = step.loss_and_grads(x, y)
-    torch.cuda.synchronize()
-    expect_launches(_build.launch_counts(), per_step, "train gradients")
-    names = [n for n, _ in net.named_parameters()]
-    params = list(net.parameters())
-    loss_p = plain_train_loss(torch, F, net, x, y)
-    g_p = torch.autograd.grad(loss_p, params)
-    del loss_p
-    g_k = [g.float() for g in g_k]
-    g_p = [g.float() for g in g_p]
     net32 = LlamaForCausalLM(LlamaConfig(num_layers=L, dtype="float32"),
                              device="cuda")
-    with torch.no_grad():
-        for p32, p in zip(net32.parameters(), params):
-            p32.copy_(p)
-    loss_32 = plain_train_loss(torch, F, net32, x, y)
-    g_32 = torch.autograd.grad(loss_32, list(net32.parameters()))
-    loss_32 = loss_32.detach()
+    grads_three_ways(torch, "train", step,
+                     FusedTrainStep(net32, step.loss_fn, step.optimizer),
+                     None, (x, y), per_step)
     del net32
-    rows = []
-    for n, a, b, c in zip(names, g_k, g_p, g_32):
-        rk, rp = rel_l2(torch, a, c), rel_l2(torch, b, c)
-        rows.append((rk / max(GRAD_FLOOR, 2 * rp), n, rk, rp))
-    del g_k, g_p, g_32
-    torch.cuda.empty_cache()
-    worst = sorted(rows, reverse=True)
-    bad = [r for r in rows if r[0] > 1]
-    check(not bad, "train: gradients beyond max(floor, 2 x plain) from "
-                   "fp32: " + ", ".join(f"{n} {rk:.4g} (plain {rp:.4g})"
-                                        for _, n, rk, rp in bad))
-    print(f"[train] one step's gradients, relative L2 from the fp32 copy's "
-          f"plain-path gradients, per parameter: kernel path within "
-          f"max({GRAD_FLOOR:.4g}, 2 x the plain bf16 path's) for all "
-          f"{len(rows)}; loss kernel {float(loss_k):.5f}, fp32 "
-          f"{float(loss_32):.5f}; closest to the bound: " + ", ".join(
-              f"{n} {rk:.4g} (plain {rp:.4g})" for _, n, rk, rp in worst[:4])
-          + f"; kernel-path distances {min(r[2] for r in rows):.4g}-"
-          f"{max(r[2] for r in rows):.4g}, plain-path "
-          f"{min(r[3] for r in rows):.4g}-{max(r[3] for r in rows):.4g}, "
-          f"largest ratio to the bound {worst[0][0]:.3f}", flush=True)
 
     # five steps on the batch
     _build.reset_launch_counts()
@@ -1920,10 +2262,166 @@ def train_phase(torch, F, card):
           f"{', '.join(f'{w:.1f}' for w in walls)} ms; train tokens/s "
           f"over steps 2-5: {tps:.1f} ({card}); peak device memory "
           f"{peak:.2f} GB", flush=True)
-    train_breakdown(torch, step, x, y, float(np.median(walls[1:])))
+    train_breakdown(torch, step, (x, y), float(np.median(walls[1:])))
     del step, net
     torch.cuda.empty_cache()
     return counts
+
+
+# -- phases 6 and 7: BERT pretraining and the Transformer ---------------------
+
+def bert_phase(torch, F, card):
+    """BERT-base pretraining as bench.py's BERT leg runs it: bf16
+    (`amp.convert_block`), AdamW (lr 1e-4, wd 0.01,
+    multi_precision=True), `FusedTrainStep(n_model_inputs=3)` with the
+    masked-MLM plus NSP loss, one batch of B=32 x T=128 from the seed
+    (valid_length in [64, 128], 15% MLM mask), dropout 0.1 from a seeded
+    generator. One step's gradients held three ways; five steps with
+    exact launch counts per step, finite losses, the fifth below the
+    first; samples/s over steps 2-5; one more step by kernel family.
+    Returns the five steps' launch counts."""
+    from mxnet_tpu_torch import amp, gluon, optimizer
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+
+    B, T, V = BERT_B, BERT_T, BERT_VOCAB
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    net = amp.convert_block(get_model("bert_base", device="cuda", seed=SEED,
+                                      dropout_generator=gen), torch.bfloat16)
+    net32 = get_model("bert_base", device="cuda", seed=SEED,
+                      dropout_generator=gen)
+    rs = np.random.RandomState(SEED + 14)
+    ids = rs.randint(4, V, (B, T))
+    tok = np.zeros((B, T), np.int64)
+    vlen = rs.randint(T // 2, T + 1, B).astype(np.int32)
+    labels = rs.randint(4, V, (B, T))
+    mask = (rs.rand(B, T) < 0.15).astype(np.float32)
+    nsp = rs.randint(0, 2, B)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in (ids, tok, vlen, labels, mask, nsp))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(mlm, nsp_logits, labels_, mask_, nsp_labels):
+        # bench.py's: the MLM loss averaged over the masked positions,
+        # plus the NSP mean
+        per = ce(mlm.reshape(-1, V), labels_.reshape(-1))
+        m = mask_.reshape(-1).float()
+        return (per * m).sum() / torch.clamp(m.sum(), min=1.0) \
+            + ce(nsp_logits, nsp_labels).mean()
+
+    def make_step(model):
+        return FusedTrainStep(model, loss_fn, optimizer.AdamW(
+            learning_rate=1e-4, wd=0.01, multi_precision=True),
+            n_model_inputs=3)
+    step = make_step(net)
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"[bert] bert_base vocab={V} units=768 hidden=3072 layers=12 "
+          f"heads=12 (d=64), bf16 weights with fp32 norm gains: "
+          f"{n_params / 1e6:.1f} M random parameters; AdamW lr 1e-4 wd 0.01;"
+          f" dropout 0.1; batch B={B} T={T}, valid_length "
+          f"{int(vlen.min())}-{int(vlen.max())}, {int(mask.sum())} MLM "
+          f"positions", flush=True)
+    # embed_norm, two norms a layer and mlm_norm; one attention a layer;
+    # the MLM loss on the fused CE (NSP's two classes take log_softmax)
+    per_step = {"mxtt_layernorm": 26, "mxtt_layernorm_dx": 26,
+                "mxtt_flash_prefill": 12, "mxtt_flash_bwd_dq": 12,
+                "mxtt_flash_bwd_dkv": 12, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+    grads_three_ways(torch, "bert", step, make_step(net32), gen, batch,
+                     per_step)
+    del net32
+
+    _build.reset_launch_counts()
+    gen.manual_seed(SEED)
+    losses, marks = [], []
+    torch.cuda.synchronize()
+    for _ in range(5):
+        marks.append(time.perf_counter())
+        losses.append(float(step(*batch)))      # the float() synchronises
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts = _build.launch_counts()
+    expect_launches(counts, {k: 5 * v for k, v in per_step.items()},
+                    "bert 5 steps")
+    check(all(math.isfinite(v) for v in losses) and losses[4] < losses[0],
+          f"bert: losses not finite or the fifth not below the first: "
+          f"{losses}")
+    sps = 4 * B / (marks[5] - marks[1])
+    walls = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    print(f"[bert] 5 AdamW steps on one batch: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; step wall "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms; samples/s over "
+          f"steps 2-5: {sps:.1f} ({card}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    train_breakdown(torch, step, batch, float(np.median(walls[1:])), "bert")
+    del step, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def transformer_phase(torch, F, card):
+    """transformer_base (bf16 weights; its activations are fp32 from the
+    positional encodings on, as in the JAX package) trained by
+    `FusedTrainStep(n_model_inputs=3)` with AdamW (lr 1e-4, wd 0.01) on
+    one batch of B=32, src and tgt T=128, src_valid_len from the seed.
+    One step's gradients held three ways, then one step: exact launch
+    counts (no attention kernel: every Transformer attention carries a
+    mask, as in the JAX package) and a finite loss."""
+    from mxnet_tpu_torch import amp, gluon, optimizer
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+
+    B, T, V = BERT_B, BERT_T, 32000
+    gen = torch.Generator(device="cuda")
+    net = amp.convert_block(get_model("transformer_base", device="cuda",
+                                      seed=SEED, dropout_generator=gen),
+                            torch.bfloat16)
+    net32 = get_model("transformer_base", device="cuda", seed=SEED,
+                      dropout_generator=gen)
+    rs = np.random.RandomState(SEED + 15)
+    src = rs.randint(0, V, (B, T))
+    tgt = rs.randint(0, V, (B, T + 1))
+    vlen = rs.randint(T // 2, T + 1, B).astype(np.int32)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in (src, tgt[:, :-1], vlen, tgt[:, 1:].copy()))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make_step(model):
+        return FusedTrainStep(
+            model, lambda lg, y: ce(lg.reshape(-1, V), y.reshape(-1)),
+            optimizer.AdamW(learning_rate=1e-4, wd=0.01), n_model_inputs=3)
+    step = make_step(net)
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"[transformer] transformer_base vocab={V}/{V} units=512 "
+          f"hidden=2048 layers=6+6 heads=8 (d=64), bf16 weights: "
+          f"{n_params / 1e6:.1f} M random parameters; AdamW lr 1e-4 wd "
+          f"0.01; dropout 0.1; batch B={B} src T={T} tgt T={T}, "
+          f"src_valid_len {int(vlen.min())}-{int(vlen.max())}", flush=True)
+    # encoder 2 norms a layer and its final norm, decoder 3 a layer and
+    # its final norm; the loss on the fused CE; attention kernels 0
+    per_step = {"mxtt_layernorm": 32, "mxtt_layernorm_dx": 32,
+                "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+    grads_three_ways(torch, "transformer", step, make_step(net32), gen,
+                     batch, per_step)
+    del net32
+    _build.reset_launch_counts()
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(*batch))
+    wall = 1e3 * (time.perf_counter() - t0)
+    counts = _build.launch_counts()
+    expect_launches(counts, per_step, "transformer step")
+    check(math.isfinite(loss), f"transformer: loss {loss} not finite")
+    print(f"[transformer] one AdamW step: loss {loss:.5f} (ln {V} = "
+          f"{math.log(V):.5f}); wall {wall:.1f} ms, the first step "
+          f"(optimizer states created) ({card})", flush=True)
+    del step, net
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     try:
@@ -1978,6 +2476,10 @@ def main() -> int:
             entries += kernel_ce(torch, F, flush)
             entries[0]["train"] = rms_train
             entries[1]["train"] = attn_train
+            entries += kernel_layernorm(torch, F, flush)
+            for e, bert in zip((entries[1], dq_entry, dkv_entry),
+                               kernel_flash_bert(torch, F, flush)):
+                e["bert"] = bert
         finally:
             matmul.allow_bf16_reduced_precision_reduction = reduced
         del flush
@@ -1995,6 +2497,8 @@ def main() -> int:
         del net
         torch.cuda.empty_cache()
         train_counts = train_phase(torch, F, card)
+        bert_counts = bert_phase(torch, F, card)
+        transformer_phase(torch, F, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2002,6 +2506,7 @@ def main() -> int:
     decode_src = "mxnet_tpu_torch/csrc/decode_attention.cu"
     backward_src = "mxnet_tpu_torch/csrc/flash_backward.cu"
     ce_src = "mxnet_tpu_torch/csrc/fused_ce.cu"
+    ln_src = "mxnet_tpu_torch/csrc/layernorm.cu"
     # (symbol, source, TPU kernel's pallas_call, the main-path run whose
     # launch count the line reports)
     meta = {"rmsnorm": ("mxtt_rmsnorm", "mxnet_tpu_torch/csrc/rmsnorm.cu",
@@ -2039,7 +2544,12 @@ def main() -> int:
             "ce_fwd": ("mxtt_ce_fwd", ce_src,
                        "mxnet_tpu/kernels/fused_ce.py:119", train_counts),
             "ce_bwd": ("mxtt_ce_bwd", ce_src,
-                       "mxnet_tpu/kernels/fused_ce.py:161", train_counts)}
+                       "mxnet_tpu/kernels/fused_ce.py:161", train_counts),
+            "layernorm": ("mxtt_layernorm", ln_src,
+                          "mxnet_tpu/kernels/fused_norm.py:207", bert_counts),
+            "layernorm_dx": ("mxtt_layernorm_dx", ln_src,
+                             "mxnet_tpu/kernels/fused_norm.py:234",
+                             bert_counts)}
     # the TPU kernel and the error are read under two names each
     # (replaces/tpu_kernel, max_abs_err/max_err): one value, both keys
     kernels = []
@@ -2053,8 +2563,9 @@ def main() -> int:
                         "plain_ms": e["plain_ms"],
                         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                         "library_ms": e["library_ms"], "shape": e["shape"],
-                        **{key: e[key] for key in ("verify", "train",
-                                                   "library") if key in e}})
+                        **{key: e[key] for key in (
+                            "verify", "train", "bert", "library",
+                            "no_stats_ms") if key in e}})
     print(card)                       # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

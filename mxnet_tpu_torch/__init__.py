@@ -19,10 +19,14 @@ attention kernel; and the Llama training step,
 `parallel.FusedTrainStep` with `gluon.loss.SoftmaxCrossEntropyLoss` and
 `optimizer.SGD`/`Adam`/`AdamW`, with the RMSNorm backward, the flash
 attention backward (dQ, dK/dV) and the fused softmax cross-entropy
-kernels.
+kernels; and BERT pretraining and the Transformer,
+`models.get_model("bert_base")` or `"transformer_base"` with
+`amp.convert_block` and `parallel.FusedTrainStep(n_model_inputs=3)`,
+with the LayerNorm forward and backward kernels and head dim 64 in the
+attention kernels.
 """
-from . import gluon, models, optimizer, parallel, serving
+from . import amp, gluon, models, optimizer, parallel, serving
 from .context import resolve_device
 
-__all__ = ["gluon", "models", "optimizer", "parallel", "serving",
+__all__ = ["amp", "gluon", "models", "optimizer", "parallel", "serving",
            "resolve_device"]

@@ -1,6 +1,6 @@
-// Causal, key-length-masked GQA attention backward, in two kernels that
-// recompute the probabilities from the forward's saved log-sum-exp, so
-// no (T, T) matrix is ever stored:
+// Causal or full, key-length-masked GQA attention backward, in two
+// kernels that recompute the probabilities from the forward's saved
+// log-sum-exp, so no (T, T) matrix is ever stored:
 //
 //   mxtt_flash_bwd_dq   dQ = scale * dS K, one block per q tile
 //   mxtt_flash_bwd_dkv  dV = sum P^T dO, dK = scale * sum dS^T Q, one
@@ -365,9 +365,11 @@ int dispatch(bool dkv, void* const* outs, int D, int dtype,
     return MXTT_BAD_ARGUMENT;
   if (dtype == MXTT_F32) {
     if (D == 16) return launch<float, 16>(dkv, outs, p);      // llama_tiny
+    if (D == 64) return launch<float, 64>(dkv, outs, p);      // BERT
     if (D == 128) return launch<float, 128>(dkv, outs, p);    // Llama-3-8B
   } else if (dtype == MXTT_BF16) {
     if (D == 16) return launch<__nv_bfloat16, 16>(dkv, outs, p);
+    if (D == 64) return launch<__nv_bfloat16, 64>(dkv, outs, p);
     if (D == 128) return launch<__nv_bfloat16, 128>(dkv, outs, p);
   }
   return MXTT_BAD_ARGUMENT;

@@ -1,10 +1,12 @@
-// Causal, key-length-masked GQA attention forward for the prefill and
-// the training step: q (B, T, H, d), k/v (B, T, K, d) with H % K == 0,
-// lengths (B,) int32, out (B, T, H, d) in q's dtype, and optionally the
-// (B, H, T) fp32 log-sum-exp of each row's scaled scores, which the
-// backward (flash_backward.cu) reads. Query head h reads kv head
-// h // (H/K). Keys at or past lengths[b] are masked; a row with no valid
-// key is 0 and its lse +inf (so exp(s - lse) is 0 in the backward).
+// Causal or full, key-length-masked GQA attention forward for the
+// prefill and the training steps (causal for Llama; full with key
+// padding for BERT's self-attention): q (B, T, H, d), k/v (B, T, K, d)
+// with H % K == 0, lengths (B,) int32, out (B, T, H, d) in q's dtype,
+// and optionally the (B, H, T) fp32 log-sum-exp of each row's scaled
+// scores, which the backward (flash_backward.cu) reads. Query head h
+// reads kv head h // (H/K). Keys at or past lengths[b] are masked; a row
+// with no valid key is 0 and its lse +inf (so exp(s - lse) is 0 in the
+// backward).
 //
 // Replaces: mxnet_tpu/kernels/flash_attention.py, the kernel of
 // _pallas_forward (its pallas_call; lse as with return_lse=True). The
@@ -236,6 +238,9 @@ int dispatch_dim(int D, void* out, float* lse, const void* q,
   switch (D) {
     case 16:   // llama_tiny
       return launch<T, 16>(out, lse, q, k, v, lengths, B, seq, H, K,
+                           causal, scale, s);
+    case 64:   // BERT-base, BERT-large, transformer_base
+      return launch<T, 64>(out, lse, q, k, v, lengths, B, seq, H, K,
                            causal, scale, s);
     case 128:  // Llama-3-8B
       return launch<T, 128>(out, lse, q, k, v, lengths, B, seq, H, K,

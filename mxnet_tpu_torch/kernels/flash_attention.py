@@ -1,6 +1,6 @@
-"""Causal, key-length-masked GQA attention, forward and backward: the
-CUDA kernels (`csrc/flash_prefill.cu`, `csrc/flash_backward.cu`) and
-their plain PyTorch versions.
+"""Causal or full, key-length-masked GQA attention, forward and
+backward: the CUDA kernels (`csrc/flash_prefill.cu`,
+`csrc/flash_backward.cu`) and their plain PyTorch versions.
 
 Counterpart of `mxnet_tpu/kernels/flash_attention.py`
 (`flash_attention_raw`: the `_pallas_forward` kernel with its
@@ -22,8 +22,8 @@ H % K == 0, out (B, T, H, d). `lengths` (B,) masks key positions
 
 `delta` = rowsum(dO * O) in fp32, (B, H, T), as the JAX backward
 computes it outside its kernels. A CPU tensor takes the plain versions;
-a CUDA tensor launches the kernel (any T, d in {16, 128}, float32 or
-bfloat16) or raises.
+a CUDA tensor launches the kernel (any T, d in {16, 64, 128}, float32
+or bfloat16) or raises.
 """
 from __future__ import annotations
 
@@ -52,8 +52,9 @@ _DQ = _build.CudaKernel("mxtt_flash_bwd_dq",
 _DKV = _build.CudaKernel("mxtt_flash_bwd_dkv",
                          [_P] * 9 + [_I] * 6 + [_F, _I, _P])
 
-#: the head dims of the supported configs (llama_tiny, Llama-3-8B)
-HEAD_DIMS = (16, 128)
+#: the head dims of the supported configs (llama_tiny; BERT-base,
+#: BERT-large and transformer_base; Llama-3-8B)
+HEAD_DIMS = (16, 64, 128)
 
 
 # -- plain versions ----------------------------------------------------------

@@ -1,6 +1,7 @@
 """Model zoo of the port (counterpart of `mxnet_tpu/models`): the Llama
-family so far, with contiguous-cache `generate` and `generate_beam`
-(`llama_infer`)."""
+family, with contiguous-cache `generate` and `generate_beam`
+(`llama_infer`); BERT (`bert_base`, `bert_large`, `bert_tiny`) and the
+Transformer (`transformer_base`, `transformer_tiny`)."""
 from __future__ import annotations
 
 from .llama_infer import generate, generate_beam
@@ -16,7 +17,7 @@ def register_model(name):
 
 
 def _ensure_registry():
-    from . import llama  # noqa: F401
+    from . import bert, llama, transformer  # noqa: F401
     return _FACTORIES
 
 

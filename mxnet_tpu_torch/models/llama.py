@@ -3,26 +3,25 @@ RMSNorm + RoPE + GQA + SwiGLU.
 
 The modules are parameter containers whose parameter names are the JAX
 package's (`model.layers.{i}.self_attn.q_proj.weight`, ...), so weights
-move across by name (`load_jax_params`). Dense weights are (out, in):
-y = x @ W.T, `nn.Linear`'s layout. The math is `llama_math`'s, shared
-with the serving prefill and decode tick.
+move across by name (`load_jax_params`, from `models._params`,
+re-exported here). Dense weights are (out, in): y = x @ W.T,
+`nn.Linear`'s layout. The math is `llama_math`'s, shared with the
+serving prefill and decode tick.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
-from ..context import resolve_device
+from ..gluon.nn import initialize
 from . import llama_math, register_model
+from ._params import load_jax_params
 from .llama_infer import _params_tree
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_3_8b", "load_jax_params"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: std of the random normal initial weights (norm gains start at 1)
-INIT_STD = 0.02
 
 
 class LlamaConfig:
@@ -107,22 +106,14 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """The decoder plus LM head. Weights are allocated on `device`
-    (default `cuda`) and drawn from a generator seeded with `seed`:
-    normal with std INIT_STD, norm gains 1."""
+    (default `cuda`) and drawn from a generator seeded with `seed`
+    (`gluon.nn.initialize`: normal with std 0.02, norm gains 1)."""
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
         self.model = LlamaModel(cfg)
         self.lm_head = _dense(cfg.vocab_size, cfg.hidden_size, cfg)
-        dev = resolve_device(device)
-        self.to_empty(device=dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith(".gamma"):
-                    p.fill_(1.0)
-                else:
-                    p.normal_(0.0, INIT_STD, generator=gen)
+        initialize(self, device, seed)
 
     @property
     def cfg(self) -> LlamaConfig:
@@ -144,33 +135,6 @@ class LlamaForCausalLM(nn.Module):
                 lp, x, positions, cfg.rms_eps, cfg.rope_base, cfg.num_heads,
                 cfg.num_kv_heads, cfg.head_dim, lengths=lengths)
         return llama_math.final_logits(params, x, cfg.rms_eps)
-
-
-def _to_torch(a) -> torch.Tensor:
-    a = np.array(a)                  # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":   # ml_dtypes: torch reads it as raw bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
-def load_jax_params(net: nn.Module, params: dict):
-    """Fill `net` from the JAX net's `{name: p.data().asnumpy()}`. Every
-    name must match both ways, and every shape and dtype must agree."""
-    own = dict(net.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
-    if missing or extra:
-        raise KeyError(f"parameter names differ: missing {missing}, "
-                       f"unexpected {extra}")
-    with torch.no_grad():
-        for name, p in own.items():
-            t = _to_torch(params[name])
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(p.shape)}")
-            if t.dtype != p.dtype:
-                raise TypeError(f"{name}: dtype {t.dtype} != {p.dtype}")
-            p.copy_(t)
 
 
 @register_model("llama_tiny")

@@ -20,8 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
-from ..kernels.fused_norm import rmsnorm
+from ..kernels import flash_attention as fa
+from ..kernels import fused_norm
 
 __all__ = ["rms", "rope_at", "layer_qkv", "swiglu", "layer_finish",
            "decoder_layer", "final_logits"]
@@ -30,7 +30,7 @@ __all__ = ["rms", "rope_at", "layer_qkv", "swiglu", "layer_finish",
 def rms(x, g, eps):
     """RMSNorm with fp32 statistics, output in x.dtype. Callers pass the
     config's `rms_eps`."""
-    return rmsnorm(x, g, eps)
+    return fused_norm.rmsnorm(x, g, eps)
 
 
 def rope_at(x, positions, base):
@@ -82,8 +82,8 @@ def decoder_layer(lp, x, positions, eps, base, H, K, d, lengths=None,
     optional int32 `lengths` (B,) masking keys at or past lengths[b].
     The prefill passes return_kv=True to harvest the cache rows."""
     q, k, v = layer_qkv(lp, x, positions, eps, base, H, K, d)
-    att = flash_attention(q, k, v, causal=True, scale=1.0 / math.sqrt(d),
-                          lengths=lengths)
+    att = fa.flash_attention(q, k, v, causal=True,
+                             scale=1.0 / math.sqrt(d), lengths=lengths)
     out = layer_finish(lp, x, att, eps)
     return (out, k, v) if return_kv else out
 

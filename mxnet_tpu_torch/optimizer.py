@@ -8,7 +8,10 @@ parameter, its gradient, its state and the step's hyperparameters
 Adam-family updates are computed in fp32 and applied as
 `w - (lr * upd).to(w.dtype)`. `FusedTrainStep` drives it. States are the
 rule's own (Adam keeps two fp32 moments); no fp32 master copy of a bf16
-weight is kept, as in the JAX package's fused step.
+weight is kept, as in the JAX package's fused step, which calls
+`create_state` and never `create_state_multi_precision`
+(data_parallel.py:383 there): every rule accepts `multi_precision=` and
+it has no effect under `FusedTrainStep`.
 """
 from __future__ import annotations
 
@@ -44,15 +47,18 @@ def _state_zeros(weight, n):
 
 class Optimizer:
     """Learning rate, weight decay, gradient rescale and clip shared by
-    the rules. Learning-rate schedules are not ported yet (ROADMAP A10,
-    second part)."""
+    the rules. `multi_precision` is kept for the JAX package's call
+    pattern (bench.py passes it for BERT) and has no effect: the fused
+    step keeps no fp32 master weights. Learning-rate schedules are not
+    ported yet (ROADMAP A10, second part)."""
 
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
-                 clip_gradient=None):
+                 clip_gradient=None, multi_precision=False):
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
 
     @property
     def learning_rate(self):

@@ -8,17 +8,21 @@
                           optimizer.AdamW(learning_rate=3e-4, wd=0.1))
     loss = step(x, y)            # forward, loss, backward, update
 
-One call runs the net's forward on the first argument (the model
-input), the loss on its output and the remaining arguments (labels),
-`.mean()` in fp32, the backward, and the optimizer's `_step` on every parameter
-that requires a gradient, with the JAX step's hyperparameters: `lr` the
-optimizer's learning rate, `wd` its weight decay for every parameter,
-`t` the step count, `rescale` its gradient rescale. The JAX package
+One call runs the net's forward, in training mode (dropout active), on
+the first `n_model_inputs` arguments (the model inputs); the loss on its
+output and the remaining arguments (labels), a tuple output splatted
+into `loss_fn(*outputs, *labels)` as the JAX step does (BERT's MLM and
+NSP logits); `.mean()` in fp32; the backward; and the optimizer's
+`_step` on every parameter that requires a gradient, with the JAX step's
+hyperparameters: `lr` the optimizer's learning rate, `wd` its weight
+decay for every parameter, `t` the step count, `rescale` its gradient
+rescale. The net's own mode is restored after the forward. The JAX package
 compiles all of that into one XLA program; PyTorch runs it eagerly, the
 kernels of the forward and backward being the port's own. Weights are
 updated in place in the net's parameters, so `sync_to_params` has
 nothing to write back. Optimizer states come from `create_state`, with
-no fp32 master copy of a bf16 weight (data_parallel.py:383 there).
+no fp32 master copy of a bf16 weight (data_parallel.py:383 there), so an
+optimizer's `multi_precision=True` changes nothing here.
 
 Not ported yet: a mesh and every multi-device mode (ZeRO, compression,
 pipelines; ROADMAP A16) and gradient accumulation (ROADMAP A10, second
@@ -36,7 +40,8 @@ class FusedTrainStep:
     """Forward, loss, backward and update of `net` in one call."""
 
     def __init__(self, net, loss_fn, trainer, mesh=None, grad_accum=1,
-                 compression=None, zero1=False, zero=None, pipeline=None):
+                 compression=None, zero1=False, zero=None, pipeline=None,
+                 n_model_inputs=1):
         unported = {"mesh": mesh is not None,
                     "compression": bool(compression),
                     "zero1": bool(zero1),
@@ -54,6 +59,7 @@ class FusedTrainStep:
         self.net = net
         self.loss_fn = loss_fn
         self.optimizer = trainer
+        self.n_model_inputs = n_model_inputs
         self._step_count = 0
         self._params = None
         self._states = None
@@ -77,9 +83,19 @@ class FusedTrainStep:
             return a.to(dev)
         return torch.as_tensor(np.asarray(a), device=dev)
 
-    def loss_of(self, inputs, *labels):
-        """The step's scalar fp32 loss of one batch, graph attached."""
-        loss = self.loss_fn(self.net(inputs), *labels)
+    def loss_of(self, *args):
+        """The step's scalar fp32 loss of one batch (model inputs, then
+        labels), graph attached; the forward runs in training mode."""
+        n = self.n_model_inputs
+        was_training = self.net.training
+        self.net.train()
+        try:
+            outs = self.net(*args[:n])
+        finally:
+            self.net.train(was_training)
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        loss = self.loss_fn(*outs, *args[n:])
         return loss.mean().to(torch.float32)
 
     def loss_and_grads(self, *args):

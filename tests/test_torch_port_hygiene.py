@@ -45,6 +45,10 @@ def test_package_imports_with_jax_blocked():
             "from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss\n"
             "from mxnet_tpu_torch.optimizer import SGD, Adam, AdamW\n"
             "from mxnet_tpu_torch.parallel import FusedTrainStep\n"
+            "from mxnet_tpu_torch.amp import convert_block\n"
+            "from mxnet_tpu_torch.gluon.nn import Dense, LayerNorm\n"
+            "from mxnet_tpu_torch.models.bert import bert_base\n"
+            "from mxnet_tpu_torch.models.transformer import TransformerMT\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n"
             "print('ok')\n")
@@ -75,6 +79,16 @@ def test_entry_points_refuse_cpu_fallback_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="weights are on cpu"):
         InferenceServer(net, device="cuda")
+
+
+@pytest.mark.parametrize("name", ["bert_base", "bert_tiny",
+                                  "transformer_base", "transformer_tiny"])
+def test_bert_and_transformer_refuse_cpu_fallback_without_cuda(
+        name, monkeypatch):
+    from mxnet_tpu_torch.models import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(name)
 
 
 def test_generate_refuses_cpu_fallback_without_cuda(monkeypatch):
@@ -186,8 +200,8 @@ def test_decode_routes_raise_where_autograd_needs_a_gradient(route,
     assert len(stub_launch) == 1 and out.grad_fn is None
 
 
-@pytest.mark.parametrize("route", ["rmsnorm", "flash_attention",
-                                   "softmax_ce"])
+@pytest.mark.parametrize("route", ["rmsnorm", "layernorm",
+                                   "flash_attention", "softmax_ce"])
 def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
     """The training step's kernels go through their autograd Functions on
     the card: the output has the Function's grad_fn, and a backward
@@ -199,6 +213,11 @@ def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
         ins = (torch.empty(2, 3, 64, **g), torch.empty(64, **g))
         out = fused_norm.rmsnorm(*ins, 1e-5)
         want = ["mxtt_rmsnorm", "mxtt_rmsnorm_dx"]
+    elif route == "layernorm":
+        ins = (torch.empty(2, 3, 64, **g), torch.empty(64, **g),
+               torch.empty(64, **g))
+        out = fused_norm.layernorm(*ins, 1e-5)
+        want = ["mxtt_layernorm", "mxtt_layernorm_dx"]
     elif route == "flash_attention":
         ins = (torch.empty(1, 8, 4, 16, **g), torch.empty(1, 8, 2, 16, **g),
                torch.empty(1, 8, 2, 16, **g))
@@ -219,6 +238,7 @@ def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
 
 
 @pytest.mark.parametrize("bad", ["rms_gamma_dtype", "rms_dx_rrms_rows",
+                                 "ln_gamma_dtype", "ln_strided_x",
                                  "fwd_lse_head_dim", "dq_lse_shape",
                                  "dkv_delta_dtype", "dkv_strided_dout",
                                  "ce_labels_dtype", "ce_bwd_dloss_rows"])
@@ -234,7 +254,9 @@ def test_training_wrappers_raise_on_the_card_and_never_fall_back(
 
     def fell_back(*a, **k):
         raise AssertionError("fell back to the plain version")
-    for mod, names in ((fused_norm, ("rmsnorm_fwd_ref", "rmsnorm_dx_ref")),
+    for mod, names in ((fused_norm, ("rmsnorm_fwd_ref", "rmsnorm_dx_ref",
+                                     "layernorm_fwd_ref",
+                                     "layernorm_dx_ref")),
                        (fa, ("reference_attention",
                              "reference_attention_lse", "flash_bwd_dq_ref",
                              "flash_bwd_dkv_ref")),
@@ -245,7 +267,7 @@ def test_training_wrappers_raise_on_the_card_and_never_fall_back(
     f32 = dict(device=META)
     x = torch.empty(6, 64, **f32)
     g32 = torch.empty(64, **f32)
-    d = 64 if bad == "fwd_lse_head_dim" else 16
+    d = 32 if bad == "fwd_lse_head_dim" else 16
     q = torch.empty(2, 8, 4, d, **f32)
     k = torch.empty(2, 8, 2, d, **f32)
     stats = torch.empty(2, 4, 8, **f32)
@@ -258,6 +280,12 @@ def test_training_wrappers_raise_on_the_card_and_never_fall_back(
             fused_norm.rmsnorm_fwd(x, g32.bfloat16(), 1e-5)
         elif bad == "rms_dx_rrms_rows":
             fused_norm.rmsnorm_dx(x, g32, torch.empty(5, **f32), x)
+        elif bad == "ln_gamma_dtype":
+            fused_norm.layernorm_fwd(x, g32.bfloat16(), g32, 1e-5)
+        elif bad == "ln_strided_x":
+            fused_norm.layernorm_dx(torch.empty(64, 6, **f32).t(), g32,
+                                    torch.empty(6, **f32),
+                                    torch.empty(6, **f32), x)
         elif bad == "fwd_lse_head_dim":
             fa.flash_attention_forward(q, k, k, return_lse=True)
         elif bad == "dq_lse_shape":

@@ -210,11 +210,16 @@ def test_cpu_tensors_launch_nothing():
     lbl = torch.tensor([1, 0, 63, 5], dtype=torch.int32)
     loss, lse = fused_ce.ce_fwd(x, lbl)
     fused_ce.ce_bwd(x, lbl, lse, loss)
+    # BERT's LayerNorm, forward with its statistics and dx
+    _, mu, rstd = fused_norm.layernorm_fwd(x, torch.ones(64),
+                                           torch.zeros(64), 1e-5)
+    fused_norm.layernorm_dx(x, torch.ones(64), mu, rstd, x)
     assert set(_build.launch_counts()) == {
         "mxtt_rmsnorm", "mxtt_flash_prefill", "mxtt_paged_decode",
         "mxtt_paged_decode_q8", "mxtt_contig_decode", "mxtt_contig_decode_q8",
         "mxtt_paged_window", "mxtt_rmsnorm_dx", "mxtt_flash_bwd_dq",
-        "mxtt_flash_bwd_dkv", "mxtt_ce_fwd", "mxtt_ce_bwd"}
+        "mxtt_flash_bwd_dkv", "mxtt_ce_fwd", "mxtt_ce_bwd",
+        "mxtt_layernorm", "mxtt_layernorm_dx"}
     assert all(n == 0 for n in _build.launch_counts().values())
     assert _build._lib is None
 
@@ -231,7 +236,7 @@ def test_library_key_covers_every_source():
     srcs = {p.name for p in _build._sources()}
     assert {"common.cuh", "rmsnorm.cu", "flash_prefill.cu",
             "flash_backward.cu", "fused_ce.cu", "decode_attention.cu",
-            "window_attention.cu", "status.cu"} <= srcs
+            "window_attention.cu", "layernorm.cu", "status.cu"} <= srcs
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()          # stable key

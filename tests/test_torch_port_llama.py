@@ -201,7 +201,9 @@ def test_full_forward_matches_jax(jax_tiny, torch_tiny):
 
 
 def test_registry_and_seeded_init():
-    assert list_models() == ["llama_3_8b", "llama_tiny"]
+    assert list_models() == ["bert_base", "bert_large", "bert_tiny",
+                             "llama_3_8b", "llama_tiny", "transformer_base",
+                             "transformer_tiny"]
     with pytest.raises(ValueError, match="unknown model"):
         get_model("llama_70b", device="cpu")
     a = get_model("llama_tiny", device="cpu")
