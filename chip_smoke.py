@@ -7,7 +7,9 @@ Phases, each printing its lines before the next starts; any failure
 exits non-zero and prints no result:
 
 1. device: the card's name and power limit (nvidia-smi), then the build
-   of every kernel from `mxnet_tpu_torch/csrc` (nvcc, sm_90a).
+   of every kernel from `mxnet_tpu_torch/csrc` (nvcc, sm_90a), and the
+   tensor-core attention kernels' registers and spills (`ptxas -v`),
+   setmaxnreg split and dynamic shared memory.
 2. kernels: each CUDA kernel against its plain PyTorch version at the
    serving and generation paths' own shapes (bf16) plus ragged cases,
    every element within its own stated tolerance; at the main shapes,
@@ -18,9 +20,12 @@ exits non-zero and prints no result:
    from rows whose magnitudes vary by token. Then the training step's
    kernels at the train phase's shapes: RMSNorm with its rrms and the dx
    kernel (4096 x 4096 bf16), the attention forward with its lse and the
-   dq and dkv kernels (B=2, T=2048, H=32, K=8, d=128, causal) plus a
-   ragged and a tiny fp32 case with an empty row, a backward off by one
-   at the diagonal falling outside the tolerances, and the fused CE
+   dq and dkv kernels (B=2, T=2048, H=32, K=8, d=128, causal) in bf16
+   (the tensor-core forward and dkv) and in fp32 (the SIMT kernels) plus
+   a ragged and a tiny fp32 case with an empty row, a backward off by one
+   at the diagonal falling outside the tolerances, dkv equal bit for bit
+   over two launches, the SIMT kernels timed on the bf16 inputs beside
+   the tensor-core ones, and the fused CE
    forward and backward (N=4096, V=32000) with a label off by one
    falling outside them. Then BERT's kernels: the LayerNorm forward
    (with and without mu and rstd) and dx at BERT-base's rows (4096 x
@@ -38,11 +43,11 @@ exits non-zero and prints no result:
    max_prompt_len=512)`: 16 requests of 33-512 prompt tokens, 32 new
    tokens each, greedy plus top-k/top-p rows. Every kernel's launch
    count over that run must equal its expected count (RMSNorm 65 per
-   forward, prefill 32 per request, decode 32 per tick, 0 for the
-   others); request 0's prefill is re-run with the plain versions and
-   the last-position logits compared. Then a steady decode tick's wall
-   time and the card's busy time in it, by kernel family
-   (torch.profiler). Then the same 16 requests through a server with
+   forward, the tensor-core attention forward 32 per request, decode 32
+   per tick, 0 for the others); request 0's prefill is re-run with the
+   plain versions and the last-position logits compared. Then a steady
+   decode tick's wall time and the card's busy time in it, by kernel
+   family (torch.profiler). Then the same 16 requests through a server with
    an int8 pool (`kv_cache_dtype="int8"`): the int8 paged kernel 32
    times per tick, the bf16 one never, each greedy request's first token
    equal to the bf16 server's. Then the prefix cache, chunked prefill
@@ -67,9 +72,12 @@ exits non-zero and prints no result:
    3e-4, wd 0.1) and `SoftmaxCrossEntropyLoss`, one batch of B=2 x
    T=2048 tokens: one step's gradients through the kernels held per
    parameter against the plain versions' (torch autograd) and an fp32
-   copy's; five steps with exact launch counts (per step RMSNorm and its
-   dx 2L + 1 each, attention forward, dq and dkv L each, CE forward and
-   backward 1 each), finite and strictly falling losses; train tokens/s
+   copy's, and the fp32 copy once through the kernels (the SIMT
+   attention route, exact launch counts, gradients within 2^-12 of its
+   plain path's); five steps with exact launch counts (per step RMSNorm
+   and its dx 2L + 1 each, the tensor-core attention forward and dkv and
+   the dq kernel L each, CE forward and backward 1 each), finite and
+   strictly falling losses; train tokens/s
    over steps 2-5; one more step's card time by kernel family.
 6. bert: BERT-base (vocab 30522, 768 units, 12 layers, 12 heads, bf16
    by `amp.convert_block`, random weights from the seed) behind
@@ -224,6 +232,48 @@ def attn_apply(torch, p, v, H):
             torch.einsum("bhts,bshd->bthd", p, vf.abs()))
 
 
+def attn_fwd_tol(torch, q, k, v, ref, scale, lengths, causal):
+    """Element-wise tolerance of an attention forward's output against
+    its plain version `ref` (reference_attention) on the same inputs. In
+    fp32 both differ by fp32 noise of the row's sum of p * |v|. In bf16:
+    - the plain version rounds the normalised P to bf16 before P @ V, as
+      the JAX reference does: one rounding of each p, 2^-8 of the row's
+      sum of p * |v| (BF16_ROUND);
+    - the tensor-core kernel (the bf16 route, csrc/flash_fwd_sm90.cu)
+      rounds its own P to bf16 for the wgmma, unnormalised against the
+      running max, at another point than the plain version does: another
+      2^-8 of the same sum (the second BF16_ROUND);
+    - each rounds its output once: one bf16 step of |ref| (BF16_STEP)."""
+    _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale, lengths,
+                                             causal), v, q.shape[2])
+    if ref.dtype != torch.bfloat16:
+        return FP32_NOISE * pv_abs
+    return BF16_STEP * ref.float().abs() \
+        + (2 * BF16_ROUND + FP32_NOISE) * pv_abs
+
+
+def attn_bwd_tols(torch, terms, refs):
+    """Element-wise tolerances of (dq, dk, dv) against their plain
+    versions `refs` (flash_bwd_dq_ref, flash_bwd_dkv_ref), from `terms`,
+    each output's sums of |terms| (attn_backward_fp32). Both compute in
+    fp32 from the same inputs, lse and delta (fp32 noise of the terms).
+    In bf16 each rounds once (one bf16 step of |ref|), and the
+    tensor-core dkv kernel (csrc/flash_bwd_dkv_sm90.cu) rounds P and dS to
+    bf16 before P^T dO and dS^T Q: each term of dk and dv moves by at
+    most 2^-8 of itself (BF16_ROUND of the terms). dq keeps its fp32
+    products."""
+    bf16 = refs[0].dtype == torch.bfloat16
+    tols = []
+    for name, t, r in zip(("dq", "dk", "dv"), terms, refs):
+        tol = FP32_NOISE * t
+        if bf16:
+            tol = tol + BF16_STEP * r.float().abs()
+            if name != "dq":
+                tol = tol + BF16_ROUND * t
+        tols.append(tol)
+    return tols
+
+
 def cached_attention(torch, q, k_cache, v_cache, valid_lens, scale):
     """fp32 attention of window rows q (B, W, H, d) over a gathered
     (B, K, S, d) cache, row w's keys masked at valid_lens[b, w] and an
@@ -242,6 +292,50 @@ def cached_attention(torch, q, k_cache, v_cache, valid_lens, scale):
     vf = v_cache.float()
     return tuple(torch.einsum("bwkrs,bksd->bwkrd", p, t).reshape(B, W, H, -1)
                  for t in (vf, vf.abs()))
+
+
+def tc_resources():
+    """One line per tensor-core attention kernel: its registers and spills
+    as `ptxas -v` reported them when this checkout built it, and the
+    dynamic shared memory and setmaxnreg split of its launch."""
+    import ctypes
+    import re
+
+    from mxnet_tpu_torch.kernels import _build
+    lib = _build.load_library()
+    lines = []
+    for stem, sym in (("flash_fwd_sm90", "mxtt_flash_fwd_tc_info"),
+                      ("flash_bwd_dkv_sm90", "mxtt_flash_bwd_dkv_tc_info")):
+        report = _build.ptxas_report(stem)
+        found = {}
+        for part in report.split("Compiling entry function")[1:]:
+            d = re.search(r"ILi(\d+)E", part)
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", part)
+            if d and regs and spill:
+                found[int(d.group(1))] = (regs.group(1), *spill.groups())
+        warns = [w.strip() for w in report.splitlines() if "warning" in w]
+        query = getattr(lib, sym)
+        query.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        query.restype = ctypes.c_int
+        for d in (64, 128):
+            info = (ctypes.c_int * 3)()
+            check(query(d, info) == 0, f"{sym}({d}) failed")
+            if d in found:
+                regs, stack, st, ld = found[d]
+                text = f"ptxas: {regs} registers a thread at entry, " \
+                       f"{stack} bytes stack, {st} bytes spill stores, " \
+                       f"{ld} bytes spill loads"
+            else:
+                text = "ptxas: no report (the library was not built by " \
+                       "this checkout)"
+            lines.append(f"[device] {stem} d={d}: {text}; setmaxnreg: "
+                         f"producer {info[1]}, consumers {info[2]} "
+                         f"registers a thread; dynamic shared memory "
+                         f"{info[0]} bytes"
+                         + (f"; warnings: {warns}" if warns else ""))
+    return lines
 
 
 # -- phase 2: kernels against their plain versions --------------------------
@@ -301,19 +395,9 @@ def kernel_flash_prefill(torch, F, flush, main_len):
         out = flash_attention_forward(q, k, v, True, scale, lengths)
         ref = reference_attention(q, k, v, True, scale, lengths)
         torch.cuda.synchronize()
-        # the plain version rounds P to bf16 before P @ V, as the JAX
-        # reference does (one rounding of each p: 2^-8 of the row's sum
-        # of p * |v|), the kernel keeps P in fp32, and each rounds its
-        # output once (one bf16 step of |ref|); fp32 differs by noise
-        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
-                                                 lengths, True), v, H)
-        if dtype == torch.bfloat16:
-            tol = BF16_STEP * ref.float().abs() \
-                + (BF16_ROUND + FP32_NOISE) * pv_abs
-        else:
-            tol = FP32_NOISE * pv_abs
-        err, text = held(torch, f"flash_prefill {label}", out, ref, tol)
-        line = f"[kernels] flash_prefill {label} B={B} T={T} H={H} K={K} " \
+        tol = attn_fwd_tol(torch, q, k, v, ref, scale, lengths, True)
+        err, text = held(torch, f"flash_fwd {label}", out, ref, tol)
+        line = f"[kernels] flash_fwd {label} B={B} T={T} H={H} K={K} " \
                f"d={d} lengths={lens} {dtype}: {text}"
         if label == "main":
             # a kernel off by one at the key length or at the diagonal
@@ -324,7 +408,7 @@ def kernel_flash_prefill(torch, F, flush, main_len):
             if lens[0] < T:
                 wrongs.append(("lengths+1", lengths + 1, 0))
             line += "; off by one: " + ", ".join(
-                caught(torch, f"flash_prefill {name}",
+                caught(torch, f"flash_fwd {name}",
                        attn_apply(torch, attn_probs(torch, q, k, scale, ln,
                                                     True, dg), v, H)[0]
                        .to(dtype), ref, tol)
@@ -344,11 +428,15 @@ def kernel_flash_prefill(torch, F, flush, main_len):
             pairs = sum(min(i + 1, L) for i in range(T))
             nbytes = (2 * q.numel() + 2 * B * L * K * d) * q.element_size()
             b_ms, b_by = bound(nbytes, pairs * H * 4 * d, "bf16")
+            simt = cold_ms(torch, lambda: simt_forward(
+                torch, q, k, v, True, scale, lengths, with_lse=False),
+                flush, reps=10)
             line += f" ms={ms:.4f} plain_ms={plain:.4f} library_ms=" \
-                    f"{lib:.4f} bound_ms={b_ms:.4f} ({b_by})"
-            entry = dict(name="flash_prefill", max_abs_err=err, ms=ms,
+                    f"{lib:.4f} bound_ms={b_ms:.4f} ({b_by}); SIMT version " \
+                    f"on the same inputs ms={simt:.4f}"
+            entry = dict(name="flash_fwd_tc", max_abs_err=err, ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by,
+                         bound_by=b_by, simt_ms=simt,
                          shape=f"B=1 T={T} H=32 K=8 d=128 length={L} bf16")
         print(line, flush=True)
     return entry
@@ -786,19 +874,52 @@ def attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale, lengths,
     return grads, terms
 
 
+def simt_forward(torch, q, k, v, causal, scale, lengths, with_lse=True):
+    """The fp32 SIMT forward kernel (csrc/flash_prefill.cu) launched
+    directly on operands that the port routes to the tensor-core kernel,
+    for its time beside the new kernel's ("simt_ms")."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    B, T, H, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, T, device=q.device) if with_lse else None
+    _build.launch(fa._FWD, q.device, out.data_ptr(), _build.ptr(lse),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                  B, T, H, k.shape[2], d, int(causal), float(scale),
+                  _build.dtype_code(q))
+    return out
+
+
+def simt_dkv(torch, q, k, v, dout, lse, delta, causal, scale, lengths):
+    """The fp32 SIMT dkv kernel (csrc/flash_backward.cu) launched directly,
+    as simt_forward."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.launch(fa._DKV, q.device, dk.data_ptr(), dv.data_ptr(),
+                  *fa._backward_args(q, k, v, dout, lse, delta, lengths),
+                  int(causal), float(scale), _build.dtype_code(q))
+    return dk, dv
+
+
 def kernel_flash_train(torch, F, flush):
     """The attention forward with its lse and the dq and dkv kernels
     against their plain versions at the train shape (B=2, T=2048, H=32,
-    K=8, d=128, causal, bf16), a ragged case and a tiny fp32 case with an
-    empty row. Returns (the forward's train-shape times, the dq entry,
-    the dkv entry)."""
+    K=8, d=128, causal) in bf16 (the tensor-core route) and in fp32 (the
+    SIMT route, which an fp32 net takes), a ragged bf16 case and a tiny
+    fp32 case with an empty row; dkv run twice on the same inputs must be
+    equal bit for bit. Returns (the tensor-core forward's train-shape
+    times, the dq entry, the tensor-core dkv entry, the SIMT forward
+    entry, the SIMT dkv entry)."""
     from mxnet_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     cases = (("train", TRAIN_B, TRAIN_T, 32, 8, 128, [TRAIN_T] * TRAIN_B,
               torch.bfloat16),
+             ("train fp32", TRAIN_B, TRAIN_T, 32, 8, 128, [TRAIN_T] * TRAIN_B,
+              torch.float32),
              ("ragged", 2, 333, 32, 8, 128, [333, 150], torch.bfloat16),
              ("tiny fp32", 3, 77, 4, 2, 16, [77, 40, 0], torch.float32))
-    fwd = dq_entry = dkv_entry = None
+    out_entries = {}
     for label, B, T, H, K, d, lens, dtype in cases:
         q, dout = (torch.randn(B, T, H, d, generator=gen, device="cuda")
                    .to(dtype) for _ in range(2))
@@ -819,13 +940,7 @@ def kernel_flash_train(torch, F, flush):
         dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta,
                                               True, scale, lengths)
         torch.cuda.synchronize()
-        bf16 = dtype == torch.bfloat16
-        # out: as in the prefill check (kernel_flash_prefill)
-        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
-                                                 lengths, True), v, H)
-        tol = FP32_NOISE * pv_abs
-        if bf16:
-            tol = tol + BF16_STEP * ref.float().abs() + BF16_ROUND * pv_abs
+        tol = attn_fwd_tol(torch, q, k, v, ref, scale, lengths, True)
         _, otext = held(torch, f"flash_fwd {label}", out, ref, tol)
         # lse: scores are d-term fp32 dots and the row sum another order:
         # fp32 noise of the row's scale; +inf exactly on a row with no key
@@ -836,13 +951,9 @@ def kernel_flash_train(torch, F, flush):
         fin = ~empty
         _, ltext = held(torch, f"flash_fwd lse {label}", lse[fin],
                         lse_ref[fin], FP32_NOISE * (1 + lse_ref[fin].abs()))
-        # dq, dk, dv: both compute in fp32 from the same inputs, lse and
-        # delta (fp32 noise of each output's sum of |terms|) and round
-        # once (one bf16 step of |ref|)
         (_, terms) = attn_backward_fp32(torch, q, k, v, dout, lse, delta,
                                         scale, lengths)
-        tols = [FP32_NOISE * t + (BF16_STEP * r.float().abs() if bf16 else 0)
-                for t, r in zip(terms, (dq_ref, dk_ref, dv_ref))]
+        tols = attn_bwd_tols(torch, terms, (dq_ref, dk_ref, dv_ref))
         del terms
         errs, texts = zip(*(held(torch, f"flash_{n} {label}", o, r, t)
                             for n, o, r, t in zip(
@@ -866,8 +977,19 @@ def kernel_flash_train(torch, F, flush):
                                                 tols)]
                 del grads
             line += "; off by one: " + ", ".join(wrong)
-            del tols
+            # no atomics: each dK, dV row has one writer and sums its
+            # query heads in one order
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, True,
+                                        scale, lengths)
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  "flash_bwd_dkv: two launches on the same inputs differ")
+            line += "; dkv twice on the same inputs: equal bit for bit"
+            del dk2, dv2
+        del tols
+        if label in ("train", "train fp32"):
             torch.cuda.empty_cache()
+            bf16 = dtype == torch.bfloat16
+            kind = "bf16" if bf16 else "fp32"
             ms = cold_ms(torch, lambda: fa.flash_attention_forward(
                 q, k, v, True, scale, lengths, return_lse=True), flush,
                 reps=10)
@@ -883,15 +1005,9 @@ def kernel_flash_train(torch, F, flush):
             lib_bwd = cold_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qt, kt, vt), do_t, retain_graph=True), flush,
                 reps=10)
-            dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
-                q, k, v, dout, lse, delta, True, scale, lengths), flush,
-                reps=10)
             dkv_ms = cold_ms(torch, lambda: fa.flash_bwd_dkv(
                 q, k, v, dout, lse, delta, True, scale, lengths), flush,
                 reps=10)
-            dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
-                q, k, v, dout, lse, delta, True, scale, lengths), flush,
-                reps=5)
             dkv_plain = cold_ms(torch, lambda: fa.flash_bwd_dkv_ref(
                 q, k, v, dout, lse, delta, True, scale, lengths), flush,
                 reps=5)
@@ -900,38 +1016,65 @@ def kernel_flash_train(torch, F, flush):
             # score, dO V^T, dS K) and dkv 8d (the score, dO V^T, P^T dO,
             # dS^T Q); each input read once, each output written once
             pairs = sum(min(i + 1, L) for L in lens for i in range(T))
-            qb, kb = q.numel() * 2, k.numel() * 2
+            es = q.element_size()
+            qb, kb = q.numel() * es, k.numel() * es
             stats = 2 * B * H * T * 4
             f_ms, f_by = bound(2 * qb + 2 * kb + B * H * T * 4,
-                               pairs * H * 4 * d, "bf16")
-            q_ms, q_by = bound(3 * qb + 2 * kb + stats,
-                               pairs * H * 6 * d, "bf16")
+                               pairs * H * 4 * d, kind)
             k_ms, k_by = bound(2 * qb + 4 * kb + stats,
-                               pairs * H * 8 * d, "bf16")
+                               pairs * H * 8 * d, kind)
+            shape = f"B={B} T={T} H={H} K={K} d={d} causal, full lengths " \
+                    f"{kind}"
+            fwd = dict(max_abs_err=float((out.float() - ref.float()).abs()
+                                         .max()),
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=f_ms,
+                       bound_by=f_by, shape=shape + ", writing lse")
+            dkv = dict(max_abs_err=max(errs[1:]), ms=dkv_ms,
+                       plain_ms=dkv_plain, library_ms=lib_bwd,
+                       bound_ms=k_ms, bound_by=k_by, shape=shape,
+                       library="SDPA backward: dq, dk, dv together")
             line += f"; forward+lse ms={ms:.4f} plain_ms={plain:.4f} " \
                     f"library_ms={lib:.4f} (SDPA, causal, GQA) bound_ms=" \
-                    f"{f_ms:.4f} ({f_by}); dq ms={dq_ms:.4f} plain_ms=" \
-                    f"{dq_plain:.4f} bound_ms={q_ms:.4f} ({q_by}); dkv ms=" \
-                    f"{dkv_ms:.4f} plain_ms={dkv_plain:.4f} bound_ms=" \
-                    f"{k_ms:.4f} ({k_by}); SDPA backward (dq, dk, dv " \
-                    f"together) library_ms={lib_bwd:.4f}"
-            shape = f"B={B} T={T} H={H} K={K} d={d} causal, full lengths bf16"
-            fwd = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=f_ms,
-                       bound_by=f_by, shape=shape + ", writing lse")
-            dq_entry = dict(name="flash_bwd_dq", max_abs_err=errs[0],
-                            ms=dq_ms, plain_ms=dq_plain, library_ms=lib_bwd,
-                            bound_ms=q_ms, bound_by=q_by, shape=shape,
-                            library="SDPA backward: dq, dk, dv together")
-            dkv_entry = dict(name="flash_bwd_dkv",
-                             max_abs_err=max(errs[1:]), ms=dkv_ms,
-                             plain_ms=dkv_plain, library_ms=lib_bwd,
-                             bound_ms=k_ms, bound_by=k_by, shape=shape,
-                             library="SDPA backward: dq, dk, dv together")
+                    f"{f_ms:.4f} ({f_by}); dkv ms={dkv_ms:.4f} plain_ms=" \
+                    f"{dkv_plain:.4f} bound_ms={k_ms:.4f} ({k_by}); SDPA " \
+                    f"backward (dq, dk, dv together) library_ms=" \
+                    f"{lib_bwd:.4f}"
+            if bf16:
+                # the SIMT kernels on the same bf16 inputs, for comparison
+                fwd["simt_ms"] = cold_ms(torch, lambda: simt_forward(
+                    torch, q, k, v, True, scale, lengths), flush, reps=10)
+                dkv["simt_ms"] = cold_ms(torch, lambda: simt_dkv(
+                    torch, q, k, v, dout, lse, delta, True, scale,
+                    lengths), flush, reps=10)
+                dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
+                    q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                    reps=10)
+                dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
+                    q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                    reps=5)
+                q_ms, q_by = bound(3 * qb + 2 * kb + stats,
+                                   pairs * H * 6 * d, "bf16")
+                line += f"; SIMT version on the same inputs: forward+lse " \
+                        f"ms={fwd['simt_ms']:.4f}, dkv ms=" \
+                        f"{dkv['simt_ms']:.4f}; dq ms={dq_ms:.4f} " \
+                        f"plain_ms={dq_plain:.4f} bound_ms={q_ms:.4f} " \
+                        f"({q_by})"
+                out_entries["dq"] = dict(
+                    name="flash_bwd_dq", max_abs_err=errs[0], ms=dq_ms,
+                    plain_ms=dq_plain, library_ms=lib_bwd, bound_ms=q_ms,
+                    bound_by=q_by, shape=shape,
+                    library="SDPA backward: dq, dk, dv together")
+                out_entries["fwd_tc"] = fwd
+                out_entries["dkv_tc"] = dict(dkv, name="flash_bwd_dkv_tc")
+            else:
+                out_entries["fwd_simt"] = dict(fwd, name="flash_prefill")
+                out_entries["dkv_simt"] = dict(dkv, name="flash_bwd_dkv")
             del o_lib, qt, kt, vt
         print(line, flush=True)
         del q, k, v, dout, out, ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
         torch.cuda.empty_cache()
-    return fwd, dq_entry, dkv_entry
+    return tuple(out_entries[key] for key in ("fwd_tc", "dq", "dkv_tc",
+                                              "fwd_simt", "dkv_simt"))
 
 
 def kernel_ce(torch, F, flush):
@@ -1195,20 +1338,14 @@ def kernel_flash_bert(torch, F, flush):
         dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta,
                                               False, scale, lengths)
         torch.cuda.synchronize()
-        bf16 = dtype == torch.bfloat16
         # as kernel_flash_train, with every key below lengths[b] kept
-        _, pv_abs = attn_apply(torch, attn_probs(torch, q, k, scale,
-                                                 lengths, False), v, H)
-        tol = FP32_NOISE * pv_abs
-        if bf16:
-            tol = tol + BF16_STEP * ref.float().abs() + BF16_ROUND * pv_abs
+        tol = attn_fwd_tol(torch, q, k, v, ref, scale, lengths, False)
         err_f, otext = held(torch, f"flash_fwd {label}", out, ref, tol)
         _, ltext = held(torch, f"flash_fwd lse {label}", lse, lse_ref,
                         FP32_NOISE * (1 + lse_ref.abs()))
         (_, terms) = attn_backward_fp32(torch, q, k, v, dout, lse, delta,
                                         scale, lengths, causal=False)
-        tols = [FP32_NOISE * t + (BF16_STEP * r.float().abs() if bf16 else 0)
-                for t, r in zip(terms, (dq_ref, dk_ref, dv_ref))]
+        tols = attn_bwd_tols(torch, terms, (dq_ref, dk_ref, dv_ref))
         del terms
         errs, texts = zip(*(held(torch, f"flash_{n} {label}", o, r, t)
                             for n, o, r, t in zip(
@@ -1237,8 +1374,19 @@ def kernel_flash_bert(torch, F, flush):
                                                 tols)]
                 del grads
             line += "; lengths off by one: " + ", ".join(wrong)
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, False,
+                                        scale, lengths)
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  "flash_bwd_dkv bert: two launches on the same inputs "
+                  "differ")
+            del dk2, dv2
             ms = cold_ms(torch, lambda: fa.flash_attention_forward(
                 q, k, v, False, scale, lengths, return_lse=True), flush)
+            simt = cold_ms(torch, lambda: simt_forward(
+                torch, q, k, v, False, scale, lengths), flush)
+            dkv_simt = cold_ms(torch, lambda: simt_dkv(
+                torch, q, k, v, dout, lse, delta, False, scale, lengths),
+                flush)
             plain = cold_ms(torch, lambda: fa.reference_attention_lse(
                 q, k, v, False, scale, lengths), flush, reps=10)
             dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
@@ -1278,18 +1426,21 @@ def kernel_flash_bert(torch, F, flush):
                     f"plain_ms={dq_plain:.4f} bound_ms={q_ms:.4f} ({q_by});" \
                     f" dkv ms={dkv_ms:.4f} plain_ms={dkv_plain:.4f} " \
                     f"bound_ms={k_ms:.4f} ({k_by}); SDPA backward (dq, dk, " \
-                    f"dv together) library_ms={lib_bwd:.4f}"
+                    f"dv together) library_ms={lib_bwd:.4f}; SIMT version " \
+                    f"on the same inputs: forward+lse ms={simt:.4f}, dkv " \
+                    f"ms={dkv_simt:.4f}; dkv twice: equal bit for bit"
             shape = f"B={B} T={T} H=K={H} d={d} full, lengths " \
                     f"{min(lens)}-{max(lens)} bf16"
             times = (dict(ms=ms, plain_ms=plain, library_ms=lib,
                           bound_ms=f_ms, bound_by=f_by, max_abs_err=err_f,
-                          shape=shape + ", writing lse"),
+                          simt_ms=simt, shape=shape + ", writing lse"),
                      dict(ms=dq_ms, plain_ms=dq_plain, library_ms=lib_bwd,
                           bound_ms=q_ms, bound_by=q_by, max_abs_err=errs[0],
                           shape=shape),
                      dict(ms=dkv_ms, plain_ms=dkv_plain, library_ms=lib_bwd,
                           bound_ms=k_ms, bound_by=k_by,
-                          max_abs_err=max(errs[1:]), shape=shape))
+                          max_abs_err=max(errs[1:]), simt_ms=dkv_simt,
+                          shape=shape))
             del o_lib, qt, kt, vt
         print(line, flush=True)
         del q, k, v, dout, out, ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
@@ -1499,7 +1650,7 @@ def serve(torch, F, net, prompts):
                                                "serve")
     expect_launches(counts, {
         "mxtt_rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
-        "mxtt_flash_prefill": cfg.num_layers * prefills,
+        "mxtt_flash_fwd_tc": cfg.num_layers * prefills,
         "mxtt_paged_decode": cfg.num_layers * ticks}, "serve")
 
     # request 0's prefill: kernel path (scratch block table, so the pool
@@ -1534,7 +1685,7 @@ def serve_int8(torch, net, prompts, first_bf16):
                                                "serve int8")
     expect_launches(counts, {
         "mxtt_rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
-        "mxtt_flash_prefill": cfg.num_layers * prefills,
+        "mxtt_flash_fwd_tc": cfg.num_layers * prefills,
         "mxtt_paged_decode_q8": cfg.num_layers * ticks}, "serve int8")
     greedy = [i for i in range(N_REQUESTS) if i % 4 != 3]
     same = [reqs[i].output_tokens[0] == first_bf16[i] for i in greedy]
@@ -1949,7 +2100,7 @@ def generate_phase(torch, net, prompts):
               f"tokens each: {B * new} tokens in {wall:.2f} s = "
               f"{B * new / wall:.1f} tokens/s", flush=True)
         expect_launches(counts, {"mxtt_rmsnorm": per_fwd * (1 + new),
-                                 "mxtt_flash_prefill": L,
+                                 "mxtt_flash_fwd_tc": L,
                                  sym: L * new}, f"generate {kv}")
     first = outs["model"][:, T] == outs["int8"][:, T]
     check(first.all(), f"generate: first tokens differ between the bf16 "
@@ -2009,7 +2160,7 @@ def generate_phase(torch, net, prompts):
           f"{W}, {new_b} new: {2 * new_b} tokens in {wall:.2f} s = "
           f"{2 * new_b / wall:.1f} tokens/s", flush=True)
     expect_launches(counts, {"mxtt_rmsnorm": per_fwd * new_b,
-                             "mxtt_flash_prefill": L,
+                             "mxtt_flash_fwd_tc": L,
                              "mxtt_contig_decode": L * (new_b - 1)},
                     "generate_beam")
     return runs
@@ -2095,12 +2246,23 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-def grads_three_ways(torch, label, step, step32, gen, batch, per_step):
+#: an fp32 net's gradients through the kernels against its plain path's:
+#: both fp32, so they differ by reassociation alone (about 1e-6 relative
+#: per op; 2^-12 leaves room for a deep net's growth of it)
+FP32_GRAD_TOL = 2.0 ** -12
+
+
+def grads_three_ways(torch, label, step, step32, gen, batch, per_step,
+                     per_step32=None):
     """One step's gradients through the kernels (exact launch counts),
     through the plain versions in the net's dtype and through the plain
     versions of an fp32 copy of the same weights, the dropout generator
     (if the net has one) reseeded before each so that all three draw the
-    same masks; held per parameter by `hold_gradients`."""
+    same masks; held per parameter by `hold_gradients`. With
+    `per_step32`, the fp32 copy also runs through the kernels (their fp32
+    route) with those exact launch counts, its gradients within
+    FP32_GRAD_TOL of the plain path's per parameter; returns that run's
+    launch counts."""
     def reseed():
         if gen is not None:
             gen.manual_seed(SEED)
@@ -2127,8 +2289,30 @@ def grads_three_ways(torch, label, step, step32, gen, batch, per_step):
     expect_launches(_build.launch_counts(), {}, f"{label} plain paths")
     hold_gradients(torch, label, names, [g.float() for g in g_k],
                    [g.float() for g in g_p], g_32, loss_k, loss_32.detach())
-    del g_k, g_p, g_32
+    del g_k, g_p
+    counts32 = None
+    if per_step32 is not None:
+        _build.reset_launch_counts()
+        reseed()
+        loss_32k, g_32k = step32.loss_and_grads(*batch)
+        torch.cuda.synchronize()
+        counts32 = _build.launch_counts()
+        expect_launches(counts32, per_step32, f"{label} fp32 kernels")
+        dist = sorted((rel_l2(torch, a, c), n)
+                      for n, a, c in zip(names, g_32k, g_32))
+        check(dist[-1][0] <= FP32_GRAD_TOL,
+              f"{label} fp32 kernels: {dist[-1][1]} gradient "
+              f"{dist[-1][0]:.4g} relative L2 from the plain path's "
+              f"(> {FP32_GRAD_TOL:.4g})")
+        print(f"[{label}] the fp32 copy through the kernels (SIMT "
+              f"attention): loss {float(loss_32k):.6f} (plain "
+              f"{float(loss_32):.6f}); every gradient within "
+              f"{FP32_GRAD_TOL:.4g} relative L2 of the plain path's, "
+              f"largest {dist[-1][0]:.4g} ({dist[-1][1]})", flush=True)
+        del g_32k
+    del g_32
     torch.cuda.empty_cache()
+    return counts32
 
 
 def train_breakdown(torch, step, args, wall, label="train"):
@@ -2146,7 +2330,9 @@ def train_breakdown(torch, step, args, wall, label="train"):
               ("layernorm_kernel", "layernorm"),
               ("flash_bwd_dq_kernel", "flash_bwd_dq"),
               ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+              ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tc"),
               ("flash_prefill_kernel", "flash_fwd"),
+              ("flash_fwd_tc_kernel", "flash_fwd_tc"),
               ("ce_fwd_kernel", "ce_fwd"), ("ce_bwd_kernel", "ce_bwd"))
 
     def busy(fn, split):
@@ -2227,16 +2413,21 @@ def train_phase(torch, F, card):
           f"{cfg.num_heads}/{cfg.num_kv_heads} {cfg.dtype}: "
           f"{n_params / 1e9:.2f} B random parameters; AdamW lr 3e-4 wd "
           f"0.1; batch B={B} T={T}", flush=True)
+    # bf16 at d = 128: the tensor-core forward and dkv, the SIMT dq
     per_step = {"mxtt_rmsnorm": 2 * L + 1, "mxtt_rmsnorm_dx": 2 * L + 1,
-                "mxtt_flash_prefill": L, "mxtt_flash_bwd_dq": L,
-                "mxtt_flash_bwd_dkv": L, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+                "mxtt_flash_fwd_tc": L, "mxtt_flash_bwd_dq": L,
+                "mxtt_flash_bwd_dkv_tc": L, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+    # the fp32 copy through the kernels: the SIMT route
+    per_step32 = dict(per_step, mxtt_flash_fwd_tc=0, mxtt_flash_prefill=L,
+                      mxtt_flash_bwd_dkv_tc=0, mxtt_flash_bwd_dkv=L)
 
     # one step's gradients three ways, before any update
     net32 = LlamaForCausalLM(LlamaConfig(num_layers=L, dtype="float32"),
                              device="cuda")
-    grads_three_ways(torch, "train", step,
-                     FusedTrainStep(net32, step.loss_fn, step.optimizer),
-                     None, (x, y), per_step)
+    counts32 = grads_three_ways(
+        torch, "train", step,
+        FusedTrainStep(net32, step.loss_fn, step.optimizer), None, (x, y),
+        per_step, per_step32)
     del net32
 
     # five steps on the batch
@@ -2265,7 +2456,7 @@ def train_phase(torch, F, card):
     train_breakdown(torch, step, (x, y), float(np.median(walls[1:])))
     del step, net
     torch.cuda.empty_cache()
-    return counts
+    return counts, counts32
 
 
 # -- phases 6 and 7: BERT pretraining and the Transformer ---------------------
@@ -2326,8 +2517,9 @@ def bert_phase(torch, F, card):
     # embed_norm, two norms a layer and mlm_norm; one attention a layer;
     # the MLM loss on the fused CE (NSP's two classes take log_softmax)
     per_step = {"mxtt_layernorm": 26, "mxtt_layernorm_dx": 26,
-                "mxtt_flash_prefill": 12, "mxtt_flash_bwd_dq": 12,
-                "mxtt_flash_bwd_dkv": 12, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
+                "mxtt_flash_fwd_tc": 12, "mxtt_flash_bwd_dq": 12,
+                "mxtt_flash_bwd_dkv_tc": 12, "mxtt_ce_fwd": 1,
+                "mxtt_ce_bwd": 1}
     grads_three_ways(torch, "bert", step, make_step(net32), gen, batch,
                      per_step)
     del net32
@@ -2453,6 +2645,8 @@ def main() -> int:
         print(f"[device] kernels built from mxnet_tpu_torch/csrc into "
               f"{_build.library_path().parent} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for line in tc_resources():
+            print(line, flush=True)
 
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         main_len = int(np.random.RandomState(SEED).randint(33, MAX_PROMPT + 1))
@@ -2470,9 +2664,9 @@ def main() -> int:
                         for name in DECODE_KERNELS]
             entries.append(kernel_paged_window(torch, F, flush))
             rms_train, rms_dx = kernel_rmsnorm_train(torch, F, flush)
-            attn_train, dq_entry, dkv_entry = kernel_flash_train(torch, F,
-                                                                 flush)
-            entries += [rms_dx, dq_entry, dkv_entry]
+            attn_train, dq_entry, dkv_entry, fwd_simt, dkv_simt = \
+                kernel_flash_train(torch, F, flush)
+            entries += [rms_dx, dq_entry, dkv_entry, fwd_simt, dkv_simt]
             entries += kernel_ce(torch, F, flush)
             entries[0]["train"] = rms_train
             entries[1]["train"] = attn_train
@@ -2496,7 +2690,7 @@ def main() -> int:
         gen_counts = generate_phase(torch, net, prompts)
         del net
         torch.cuda.empty_cache()
-        train_counts = train_phase(torch, F, card)
+        train_counts, fp32_counts = train_phase(torch, F, card)
         bert_counts = bert_phase(torch, F, card)
         transformer_phase(torch, F, card)
     except SmokeFailure as e:
@@ -2505,16 +2699,20 @@ def main() -> int:
 
     decode_src = "mxnet_tpu_torch/csrc/decode_attention.cu"
     backward_src = "mxnet_tpu_torch/csrc/flash_backward.cu"
+    fwd_tpu = "mxnet_tpu/kernels/flash_attention.py:188"
+    dkv_tpu = "mxnet_tpu/kernels/flash_attention.py:341"
     ce_src = "mxnet_tpu_torch/csrc/fused_ce.cu"
     ln_src = "mxnet_tpu_torch/csrc/layernorm.cu"
     # (symbol, source, TPU kernel's pallas_call, the main-path run whose
     # launch count the line reports)
     meta = {"rmsnorm": ("mxtt_rmsnorm", "mxnet_tpu_torch/csrc/rmsnorm.cu",
                         "mxnet_tpu/kernels/fused_norm.py:91", counts),
+            "flash_fwd_tc": ("mxtt_flash_fwd_tc",
+                             "mxnet_tpu_torch/csrc/flash_fwd_sm90.cu",
+                             fwd_tpu, counts),
             "flash_prefill": ("mxtt_flash_prefill",
                               "mxnet_tpu_torch/csrc/flash_prefill.cu",
-                              "mxnet_tpu/kernels/flash_attention.py:188",
-                              counts),
+                              fwd_tpu, fp32_counts),
             "paged_decode": ("mxtt_paged_decode", decode_src,
                              "mxnet_tpu/kernels/flash_decode.py:307",
                              counts),
@@ -2538,9 +2736,11 @@ def main() -> int:
             "flash_bwd_dq": ("mxtt_flash_bwd_dq", backward_src,
                              "mxnet_tpu/kernels/flash_attention.py:325",
                              train_counts),
-            "flash_bwd_dkv": ("mxtt_flash_bwd_dkv", backward_src,
-                              "mxnet_tpu/kernels/flash_attention.py:341",
-                              train_counts),
+            "flash_bwd_dkv_tc": ("mxtt_flash_bwd_dkv_tc",
+                                 "mxnet_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+                                 dkv_tpu, train_counts),
+            "flash_bwd_dkv": ("mxtt_flash_bwd_dkv", backward_src, dkv_tpu,
+                              fp32_counts),
             "ce_fwd": ("mxtt_ce_fwd", ce_src,
                        "mxnet_tpu/kernels/fused_ce.py:119", train_counts),
             "ce_bwd": ("mxtt_ce_bwd", ce_src,
@@ -2565,7 +2765,7 @@ def main() -> int:
                         "library_ms": e["library_ms"], "shape": e["shape"],
                         **{key: e[key] for key in (
                             "verify", "train", "bert", "library",
-                            "no_stats_ms") if key in e}})
+                            "no_stats_ms", "simt_ms") if key in e}})
     print(card)                       # as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

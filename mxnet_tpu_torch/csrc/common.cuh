@@ -6,7 +6,8 @@
 // launch was refused, or MXTT_BAD_ARGUMENT for a shape or dtype that no
 // instantiation covers. The Python wrappers check shapes first, so
 // MXTT_BAD_ARGUMENT only guards against a wrapper out of step with the
-// instantiations below.
+// instantiations below. MXTT_TENSOR_MAP: cuTensorMapEncodeTiled could not
+// describe an operand to the TMA unit (the tensor-core kernels, sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,7 +16,7 @@
 #include <stdint.h>
 
 enum { MXTT_F32 = 0, MXTT_BF16 = 1 };
-enum { MXTT_BAD_ARGUMENT = 100000 };
+enum { MXTT_BAD_ARGUMENT = 100000, MXTT_TENSOR_MAP = 100001 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

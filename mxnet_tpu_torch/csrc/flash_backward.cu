@@ -30,8 +30,12 @@
 // 1,000 operations per byte read at the Llama-3-8B training shape (B=2,
 // T=2048, H=32, K=8, d=128), far above the card's 295: only tensor cores
 // (wgmma) would approach the bound, and these kernels run on the fp32
-// SIMT units, so their floor is the fp32 rate; tensor cores are later
-// work.
+// SIMT units, so their floor is the fp32 rate.
+//
+// Route: the port launches dq here for every dtype and head dim (its
+// tensor-core version is later work), and dkv for float32 and d = 16
+// (llama_tiny); bf16 dkv at d = 64 or 128 takes the tensor-core kernel
+// (flash_bwd_dkv_sm90.cu).
 //
 // Design: the forward's layout, with the roles of queries and keys
 // swapped in dkv. A block has 8 warps; each warp owns 8 rows of the

@@ -13,6 +13,10 @@
 // TPU kernel only runs when T % 128 == 0; this one takes every T,
 // masking the ragged tail itself. The serving path passes a null lse.
 //
+// Route: the port launches this kernel for float32 operands and for
+// d = 16 (llama_tiny). bf16 at d = 64 or 128, every model it trains or
+// serves on the card, takes the tensor-core kernel (flash_fwd_sm90.cu).
+//
 // Bound on the H100: at the Llama-3-8B prefill (T = 512, H = 32, K = 8,
 // d = 128, bf16) the causal work is ~2.1 GFLOP against ~10.5 MB moved,
 // about 200 operations per byte, under the card's 295: bytes bound in
@@ -27,8 +31,7 @@
 // rows in registers. Lane j scores key j of the tile, so the row max and
 // sum are warp shuffles. The sweep stops at the diagonal tile and at
 // lengths[b]: fully masked tiles are never read. Scores and products run
-// on the fp32 SIMT units; tensor cores (wgmma) and TMA staging are later
-// work.
+// on the fp32 SIMT units.
 #include "common.cuh"
 
 namespace {

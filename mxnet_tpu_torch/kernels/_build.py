@@ -8,6 +8,10 @@ where the key hashes the sources and the flags: the first call that
 launches a kernel builds it, later processes find it. A failed build
 raises with the compiler's output.
 
+`ptxas -v` reports each kernel's registers, shared memory and spills;
+the build keeps each source's report beside the library
+(:func:`ptxas_report`).
+
 Each kernel is a :class:`CudaKernel`: a C entry point plus a plain
 integer count of its launches. An entry point returns 0 or a CUDA status
 (`cudaGetLastError()` right after the launch); any other value raises.
@@ -24,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CudaKernel", "load_library", "library_path", "launch_counts",
+__all__ = ["CudaKernel", "load_library", "library_path", "ptxas_report",
+           "launch_counts",
            "reset_launch_counts", "dtype_code", "check_cuda_tensor",
            "check_no_grad", "stream_handle", "launch", "ptr"]
 
@@ -32,7 +37,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
 LIB_NAME = "libmxtt_kernels.so"
 
 #: every kernel of the library by C symbol (see launch_counts)
@@ -83,6 +89,7 @@ def _build(lib: Path):
             out, _ = p.communicate()
             if p.returncode:
                 failed.append(f"--- {src.name} (exit {p.returncode})\n{out}")
+            (lib.parent / f"ptxas-{src.stem}.txt").write_text(out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = tmp / LIB_NAME
@@ -95,6 +102,14 @@ def _build(lib: Path):
         os.replace(tmp_lib, lib)   # atomic: readers never see a partial file
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ptxas_report(stem: str) -> str:
+    """What the compiler said (with `ptxas -v`) when it built
+    `csrc/<stem>.cu` into the current library; "" if this checkout did
+    not build it."""
+    p = library_path().parent / f"ptxas-{stem}.txt"
+    return p.read_text() if p.exists() else ""
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,6 +1,12 @@
 """Causal or full, key-length-masked GQA attention, forward and
-backward: the CUDA kernels (`csrc/flash_prefill.cu`,
-`csrc/flash_backward.cu`) and their plain PyTorch versions.
+backward: the CUDA kernels and their plain PyTorch versions.
+
+Two routes on the card. bf16 at d in {64, 128} (every model the port
+trains or serves on the card) takes the tensor-core kernels: the
+forward `csrc/flash_fwd_sm90.cu` and dK/dV `csrc/flash_bwd_dkv_sm90.cu`
+(wgmma on bf16 tiles staged by TMA). float32, and d = 16 (`llama_tiny`),
+take the fp32 SIMT kernels `csrc/flash_prefill.cu` and
+`csrc/flash_backward.cu`'s dkv. dQ takes `csrc/flash_backward.cu` on both.
 
 Counterpart of `mxnet_tpu/kernels/flash_attention.py`
 (`flash_attention_raw`: the `_pallas_forward` kernel with its
@@ -22,8 +28,9 @@ H % K == 0, out (B, T, H, d). `lengths` (B,) masks key positions
 
 `delta` = rowsum(dO * O) in fp32, (B, H, T), as the JAX backward
 computes it outside its kernels. A CPU tensor takes the plain versions;
-a CUDA tensor launches the kernel (any T, d in {16, 64, 128}, float32
-or bfloat16) or raises.
+a CUDA tensor launches the kernel of its route (any T, d in {16, 64,
+128}, float32 or bfloat16, contiguous rows on 16-byte boundaries) or
+raises.
 """
 from __future__ import annotations
 
@@ -51,10 +58,23 @@ _DQ = _build.CudaKernel("mxtt_flash_bwd_dq",
 #: dk, dv, then as _DQ after dq
 _DKV = _build.CudaKernel("mxtt_flash_bwd_dkv",
                          [_P] * 9 + [_I] * 6 + [_F, _I, _P])
+#: the tensor-core route, arguments as _FWD's and _DKV's
+_FWD_TC = _build.CudaKernel("mxtt_flash_fwd_tc", _FWD.argtypes)
+_DKV_TC = _build.CudaKernel("mxtt_flash_bwd_dkv_tc", _DKV.argtypes)
 
 #: the head dims of the supported configs (llama_tiny; BERT-base,
 #: BERT-large and transformer_base; Llama-3-8B)
 HEAD_DIMS = (16, 64, 128)
+#: the head dims the tensor-core kernels take, in bf16
+TC_HEAD_DIMS = (64, 128)
+
+
+def _route(q, simt, tensor_cores):
+    """The kernel of q's route: the tensor-core one for bf16 at a head dim
+    it takes, else the fp32 SIMT one (which keeps float32 and d = 16)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS:
+        return tensor_cores
+    return simt
 
 
 # -- plain versions ----------------------------------------------------------
@@ -214,8 +234,8 @@ def flash_attention_forward(q, k, v, causal=True, scale=None, lengths=None,
     out = torch.empty_like(q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device) \
         if return_lse else None
-    _build.launch(_FWD, q.device, out.data_ptr(), _build.ptr(lse),
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _build.launch(_route(q, _FWD, _FWD_TC), q.device, out.data_ptr(),
+                  _build.ptr(lse), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), B, T, H, K, d, int(bool(causal)),
                   float(scale), _build.dtype_code(q))
     return (out, lse) if return_lse else out
@@ -253,8 +273,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, scale=None,
                                  lengths)
     args = _backward_args(q, k, v, dout, lse, delta, lengths)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _build.launch(_DKV, q.device, dk.data_ptr(), dv.data_ptr(), *args,
-                  int(bool(causal)), float(scale), _build.dtype_code(q))
+    _build.launch(_route(q, _DKV, _DKV_TC), q.device, dk.data_ptr(),
+                  dv.data_ptr(), *args, int(bool(causal)), float(scale),
+                  _build.dtype_code(q))
     return dk, dv
 
 

@@ -237,6 +237,64 @@ def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
         assert t.grad is not None and t.grad.shape == t.shape
 
 
+@pytest.mark.parametrize("dtype,d,fwd,dkv", [
+    (torch.bfloat16, 64, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dkv_tc"),
+    (torch.bfloat16, 128, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dkv_tc"),
+    (torch.bfloat16, 16, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv"),
+    (torch.float32, 64, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv"),
+    (torch.float32, 128, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv")])
+def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dkv,
+                                                stub_launch):
+    """bf16 at d in {64, 128} takes the tensor-core forward and dkv
+    kernels; fp32 and d = 16 the SIMT ones; dq is the SIMT kernel on
+    both. The Function keeps its grad_fn, and its backward reaches q, k
+    and v with their own shapes."""
+    from mxnet_tpu_torch.kernels import flash_attention
+    g = dict(device=META, dtype=dtype, requires_grad=True)
+    ins = (torch.empty(2, 8, 4, d, **g), torch.empty(2, 8, 2, d, **g),
+           torch.empty(2, 8, 2, d, **g))
+    out = flash_attention.flash_attention(*ins)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert stub_launch == [fwd]
+    out.backward(torch.ones_like(out))
+    assert stub_launch == [fwd, "mxtt_flash_bwd_dq", dkv]
+    for t in ins:
+        assert t.grad is not None and t.grad.shape == t.shape
+    with torch.no_grad():
+        flash_attention.flash_attention(*ins)
+    assert stub_launch[-1] == fwd
+
+
+@pytest.mark.parametrize("bad", ["q_misaligned", "k_strided",
+                                 "dout_misaligned", "lse_strided"])
+def test_tensor_core_route_raises_before_any_launch(bad, stub_launch):
+    """What the tensor-core kernels cannot take (a row off a 16-byte
+    boundary, a non-contiguous operand) raises before any launch, as on
+    the SIMT route: no detour to another kernel or the plain version."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    bf = dict(device=META, dtype=torch.bfloat16)
+    shape_q, shape_k = (2, 8, 4, 64), (2, 8, 2, 64)
+
+    def misaligned(shape):      # one element past a 16-byte boundary
+        n = int(np.prod(shape))
+        return torch.empty(n + 1, **bf)[1:].view(shape)
+    q = misaligned(shape_q) if bad == "q_misaligned" \
+        else torch.empty(shape_q, **bf)
+    k = torch.empty(2, 8, 64, 2, **bf).transpose(2, 3) \
+        if bad == "k_strided" else torch.empty(shape_k, **bf)
+    if bad in ("q_misaligned", "k_strided"):
+        with pytest.raises(ValueError):
+            fa.flash_attention_forward(q, k, k, return_lse=True)
+    else:
+        dout = misaligned(shape_q) if bad == "dout_misaligned" else q
+        stats = torch.empty(2, 4, 8, device=META)
+        lse = torch.empty(2, 8, 4, device=META).transpose(1, 2) \
+            if bad == "lse_strided" else stats
+        with pytest.raises(ValueError):
+            fa.flash_bwd_dkv(q, k, k, dout, lse, stats)
+    assert stub_launch == []
+
+
 @pytest.mark.parametrize("bad", ["rms_gamma_dtype", "rms_dx_rrms_rows",
                                  "ln_gamma_dtype", "ln_strided_x",
                                  "fwd_lse_head_dim", "dq_lse_shape",
