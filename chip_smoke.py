@@ -21,11 +21,11 @@ exits non-zero and prints no result:
    kernels at the train phase's shapes: RMSNorm with its rrms and the dx
    kernel (4096 x 4096 bf16), the attention forward with its lse and the
    dq and dkv kernels (B=2, T=2048, H=32, K=8, d=128, causal) in bf16
-   (the tensor-core forward and dkv) and in fp32 (the SIMT kernels) plus
-   a ragged and a tiny fp32 case with an empty row, a backward off by one
-   at the diagonal falling outside the tolerances, dkv equal bit for bit
-   over two launches, the SIMT kernels timed on the bf16 inputs beside
-   the tensor-core ones, and the fused CE
+   (the tensor-core forward, dq and dkv) and in fp32 (the SIMT kernels)
+   plus a ragged and a tiny fp32 case with an empty row, a backward off
+   by one at the diagonal falling outside the tolerances, dq and dkv
+   equal bit for bit over two launches, the SIMT kernels timed on the
+   bf16 inputs beside the tensor-core ones, and the fused CE
    forward and backward (N=4096, V=32000) with a label off by one
    falling outside them. Then BERT's kernels: the LayerNorm forward
    (with and without mu and rstd) and dx at BERT-base's rows (4096 x
@@ -75,8 +75,8 @@ exits non-zero and prints no result:
    copy's, and the fp32 copy once through the kernels (the SIMT
    attention route, exact launch counts, gradients within 2^-12 of its
    plain path's); five steps with exact launch counts (per step RMSNorm
-   and its dx 2L + 1 each, the tensor-core attention forward and dkv and
-   the dq kernel L each, CE forward and backward 1 each), finite and
+   and its dx 2L + 1 each, the tensor-core attention forward, dq and dkv
+   L each, CE forward and backward 1 each), finite and
    strictly falling losses; train tokens/s
    over steps 2-5; one more step's card time by kernel family.
 6. bert: BERT-base (vocab 30522, 768 units, 12 layers, 12 heads, bf16
@@ -258,18 +258,17 @@ def attn_bwd_tols(torch, terms, refs):
     each output's sums of |terms| (attn_backward_fp32). Both compute in
     fp32 from the same inputs, lse and delta (fp32 noise of the terms).
     In bf16 each rounds once (one bf16 step of |ref|), and the
-    tensor-core dkv kernel (csrc/flash_bwd_dkv_sm90.cu) rounds P and dS to
-    bf16 before P^T dO and dS^T Q: each term of dk and dv moves by at
-    most 2^-8 of itself (BF16_ROUND of the terms). dq keeps its fp32
-    products."""
+    tensor-core kernels round to bf16 before their last products: dq
+    (csrc/flash_bwd_dq_sm90.cu) dS before dS K, dkv
+    (csrc/flash_bwd_dkv_sm90.cu) P and dS before P^T dO and dS^T Q. Each
+    term of dq, dk and dv moves by at most 2^-8 of itself (BF16_ROUND of
+    the terms)."""
     bf16 = refs[0].dtype == torch.bfloat16
     tols = []
-    for name, t, r in zip(("dq", "dk", "dv"), terms, refs):
+    for t, r in zip(terms, refs):
         tol = FP32_NOISE * t
         if bf16:
-            tol = tol + BF16_STEP * r.float().abs()
-            if name != "dq":
-                tol = tol + BF16_ROUND * t
+            tol = tol + BF16_STEP * r.float().abs() + BF16_ROUND * t
         tols.append(tol)
     return tols
 
@@ -305,6 +304,7 @@ def tc_resources():
     lib = _build.load_library()
     lines = []
     for stem, sym in (("flash_fwd_sm90", "mxtt_flash_fwd_tc_info"),
+                      ("flash_bwd_dq_sm90", "mxtt_flash_bwd_dq_tc_info"),
                       ("flash_bwd_dkv_sm90", "mxtt_flash_bwd_dkv_tc_info")):
         report = _build.ptxas_report(stem)
         found = {}
@@ -890,6 +890,18 @@ def simt_forward(torch, q, k, v, causal, scale, lengths, with_lse=True):
     return out
 
 
+def simt_dq(torch, q, k, v, dout, lse, delta, causal, scale, lengths):
+    """The fp32 SIMT dq kernel (csrc/flash_backward.cu) launched directly,
+    as simt_forward."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    dq = torch.empty_like(q)
+    _build.launch(fa._DQ, q.device, dq.data_ptr(),
+                  *fa._backward_args(q, k, v, dout, lse, delta, lengths),
+                  int(causal), float(scale), _build.dtype_code(q))
+    return dq
+
+
 def simt_dkv(torch, q, k, v, dout, lse, delta, causal, scale, lengths):
     """The fp32 SIMT dkv kernel (csrc/flash_backward.cu) launched directly,
     as simt_forward."""
@@ -907,10 +919,10 @@ def kernel_flash_train(torch, F, flush):
     against their plain versions at the train shape (B=2, T=2048, H=32,
     K=8, d=128, causal) in bf16 (the tensor-core route) and in fp32 (the
     SIMT route, which an fp32 net takes), a ragged bf16 case and a tiny
-    fp32 case with an empty row; dkv run twice on the same inputs must be
-    equal bit for bit. Returns (the tensor-core forward's train-shape
-    times, the dq entry, the tensor-core dkv entry, the SIMT forward
-    entry, the SIMT dkv entry)."""
+    fp32 case with an empty row; dq and dkv run twice on the same inputs
+    must be equal bit for bit. Returns (the tensor-core forward's
+    train-shape times, the tensor-core dq and dkv entries, the SIMT
+    forward, dq and dkv entries)."""
     from mxnet_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     cases = (("train", TRAIN_B, TRAIN_T, 32, 8, 128, [TRAIN_T] * TRAIN_B,
@@ -977,14 +989,19 @@ def kernel_flash_train(torch, F, flush):
                                                 tols)]
                 del grads
             line += "; off by one: " + ", ".join(wrong)
-            # no atomics: each dK, dV row has one writer and sums its
-            # query heads in one order
+            # no atomics: each dQ, dK, dV row has one writer and sums its
+            # keys (dq) or query heads (dkv) in one order
+            dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, True, scale,
+                                  lengths)
+            check(torch.equal(dq, dq2),
+                  "flash_bwd_dq: two launches on the same inputs differ")
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, True,
                                         scale, lengths)
             check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                   "flash_bwd_dkv: two launches on the same inputs differ")
-            line += "; dkv twice on the same inputs: equal bit for bit"
-            del dk2, dv2
+            line += "; dq and dkv twice on the same inputs: equal bit for " \
+                    "bit"
+            del dq2, dk2, dv2
         del tols
         if label in ("train", "train fp32"):
             torch.cuda.empty_cache()
@@ -1005,6 +1022,12 @@ def kernel_flash_train(torch, F, flush):
             lib_bwd = cold_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qt, kt, vt), do_t, retain_graph=True), flush,
                 reps=10)
+            dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=10)
+            dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
+                q, k, v, dout, lse, delta, True, scale, lengths), flush,
+                reps=5)
             dkv_ms = cold_ms(torch, lambda: fa.flash_bwd_dkv(
                 q, k, v, dout, lse, delta, True, scale, lengths), flush,
                 reps=10)
@@ -1021,6 +1044,8 @@ def kernel_flash_train(torch, F, flush):
             stats = 2 * B * H * T * 4
             f_ms, f_by = bound(2 * qb + 2 * kb + B * H * T * 4,
                                pairs * H * 4 * d, kind)
+            q_ms, q_by = bound(3 * qb + 2 * kb + stats,
+                               pairs * H * 6 * d, kind)
             k_ms, k_by = bound(2 * qb + 4 * kb + stats,
                                pairs * H * 8 * d, kind)
             shape = f"B={B} T={T} H={H} K={K} d={d} causal, full lengths " \
@@ -1029,52 +1054,49 @@ def kernel_flash_train(torch, F, flush):
                                          .max()),
                        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=f_ms,
                        bound_by=f_by, shape=shape + ", writing lse")
+            dq_e = dict(max_abs_err=errs[0], ms=dq_ms, plain_ms=dq_plain,
+                        library_ms=lib_bwd, bound_ms=q_ms, bound_by=q_by,
+                        shape=shape,
+                        library="SDPA backward: dq, dk, dv together")
             dkv = dict(max_abs_err=max(errs[1:]), ms=dkv_ms,
                        plain_ms=dkv_plain, library_ms=lib_bwd,
                        bound_ms=k_ms, bound_by=k_by, shape=shape,
                        library="SDPA backward: dq, dk, dv together")
             line += f"; forward+lse ms={ms:.4f} plain_ms={plain:.4f} " \
                     f"library_ms={lib:.4f} (SDPA, causal, GQA) bound_ms=" \
-                    f"{f_ms:.4f} ({f_by}); dkv ms={dkv_ms:.4f} plain_ms=" \
-                    f"{dkv_plain:.4f} bound_ms={k_ms:.4f} ({k_by}); SDPA " \
-                    f"backward (dq, dk, dv together) library_ms=" \
-                    f"{lib_bwd:.4f}"
+                    f"{f_ms:.4f} ({f_by}); dq ms={dq_ms:.4f} plain_ms=" \
+                    f"{dq_plain:.4f} bound_ms={q_ms:.4f} ({q_by}); dkv " \
+                    f"ms={dkv_ms:.4f} plain_ms={dkv_plain:.4f} bound_ms=" \
+                    f"{k_ms:.4f} ({k_by}); SDPA backward (dq, dk, dv " \
+                    f"together) library_ms={lib_bwd:.4f}"
             if bf16:
                 # the SIMT kernels on the same bf16 inputs, for comparison
                 fwd["simt_ms"] = cold_ms(torch, lambda: simt_forward(
                     torch, q, k, v, True, scale, lengths), flush, reps=10)
+                dq_e["simt_ms"] = cold_ms(torch, lambda: simt_dq(
+                    torch, q, k, v, dout, lse, delta, True, scale,
+                    lengths), flush, reps=10)
                 dkv["simt_ms"] = cold_ms(torch, lambda: simt_dkv(
                     torch, q, k, v, dout, lse, delta, True, scale,
                     lengths), flush, reps=10)
-                dq_ms = cold_ms(torch, lambda: fa.flash_bwd_dq(
-                    q, k, v, dout, lse, delta, True, scale, lengths), flush,
-                    reps=10)
-                dq_plain = cold_ms(torch, lambda: fa.flash_bwd_dq_ref(
-                    q, k, v, dout, lse, delta, True, scale, lengths), flush,
-                    reps=5)
-                q_ms, q_by = bound(3 * qb + 2 * kb + stats,
-                                   pairs * H * 6 * d, "bf16")
                 line += f"; SIMT version on the same inputs: forward+lse " \
-                        f"ms={fwd['simt_ms']:.4f}, dkv ms=" \
-                        f"{dkv['simt_ms']:.4f}; dq ms={dq_ms:.4f} " \
-                        f"plain_ms={dq_plain:.4f} bound_ms={q_ms:.4f} " \
-                        f"({q_by})"
-                out_entries["dq"] = dict(
-                    name="flash_bwd_dq", max_abs_err=errs[0], ms=dq_ms,
-                    plain_ms=dq_plain, library_ms=lib_bwd, bound_ms=q_ms,
-                    bound_by=q_by, shape=shape,
-                    library="SDPA backward: dq, dk, dv together")
+                        f"ms={fwd['simt_ms']:.4f}, dq ms=" \
+                        f"{dq_e['simt_ms']:.4f}, dkv ms=" \
+                        f"{dkv['simt_ms']:.4f}"
                 out_entries["fwd_tc"] = fwd
+                out_entries["dq_tc"] = dict(dq_e, name="flash_bwd_dq_tc")
                 out_entries["dkv_tc"] = dict(dkv, name="flash_bwd_dkv_tc")
             else:
                 out_entries["fwd_simt"] = dict(fwd, name="flash_prefill")
+                out_entries["dq_simt"] = dict(dq_e, name="flash_bwd_dq")
                 out_entries["dkv_simt"] = dict(dkv, name="flash_bwd_dkv")
             del o_lib, qt, kt, vt
         print(line, flush=True)
         del q, k, v, dout, out, ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
         torch.cuda.empty_cache()
-    return tuple(out_entries[key] for key in ("fwd_tc", "dq", "dkv_tc",
-                                              "fwd_simt", "dkv_simt"))
+    return tuple(out_entries[key] for key in ("fwd_tc", "dq_tc", "dkv_tc",
+                                              "fwd_simt", "dq_simt",
+                                              "dkv_simt"))
 
 
 def kernel_ce(torch, F, flush):
@@ -1308,8 +1330,9 @@ def kernel_flash_bert(torch, F, flush):
     BERT-base's self-attention (B=32, T=128, H=K=12, d=64, full, key
     padding from lengths drawn from the seed in [64, 128], bf16) and a
     small fp32 case, against their plain versions; lengths off by one
-    must fall outside the tolerances. Returns the "bert" times of the
-    forward, dq and dkv rows."""
+    must fall outside the tolerances, and dq and dkv run twice must be
+    equal bit for bit. Returns the "bert" times of the forward, dq and
+    dkv rows."""
     from mxnet_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     main_lens = np.random.RandomState(SEED + 13).randint(
@@ -1374,16 +1397,24 @@ def kernel_flash_bert(torch, F, flush):
                                                 tols)]
                 del grads
             line += "; lengths off by one: " + ", ".join(wrong)
+            dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, delta, False, scale,
+                                  lengths)
+            check(torch.equal(dq, dq2),
+                  "flash_bwd_dq bert: two launches on the same inputs "
+                  "differ")
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, False,
                                         scale, lengths)
             check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                   "flash_bwd_dkv bert: two launches on the same inputs "
                   "differ")
-            del dk2, dv2
+            del dq2, dk2, dv2
             ms = cold_ms(torch, lambda: fa.flash_attention_forward(
                 q, k, v, False, scale, lengths, return_lse=True), flush)
             simt = cold_ms(torch, lambda: simt_forward(
                 torch, q, k, v, False, scale, lengths), flush)
+            dq_simt = cold_ms(torch, lambda: simt_dq(
+                torch, q, k, v, dout, lse, delta, False, scale, lengths),
+                flush)
             dkv_simt = cold_ms(torch, lambda: simt_dkv(
                 torch, q, k, v, dout, lse, delta, False, scale, lengths),
                 flush)
@@ -1427,8 +1458,9 @@ def kernel_flash_bert(torch, F, flush):
                     f" dkv ms={dkv_ms:.4f} plain_ms={dkv_plain:.4f} " \
                     f"bound_ms={k_ms:.4f} ({k_by}); SDPA backward (dq, dk, " \
                     f"dv together) library_ms={lib_bwd:.4f}; SIMT version " \
-                    f"on the same inputs: forward+lse ms={simt:.4f}, dkv " \
-                    f"ms={dkv_simt:.4f}; dkv twice: equal bit for bit"
+                    f"on the same inputs: forward+lse ms={simt:.4f}, dq " \
+                    f"ms={dq_simt:.4f}, dkv ms={dkv_simt:.4f}; dq and dkv " \
+                    f"twice: equal bit for bit"
             shape = f"B={B} T={T} H=K={H} d={d} full, lengths " \
                     f"{min(lens)}-{max(lens)} bf16"
             times = (dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1436,7 +1468,7 @@ def kernel_flash_bert(torch, F, flush):
                           simt_ms=simt, shape=shape + ", writing lse"),
                      dict(ms=dq_ms, plain_ms=dq_plain, library_ms=lib_bwd,
                           bound_ms=q_ms, bound_by=q_by, max_abs_err=errs[0],
-                          shape=shape),
+                          simt_ms=dq_simt, shape=shape),
                      dict(ms=dkv_ms, plain_ms=dkv_plain, library_ms=lib_bwd,
                           bound_ms=k_ms, bound_by=k_by,
                           max_abs_err=max(errs[1:]), simt_ms=dkv_simt,
@@ -2329,6 +2361,7 @@ def train_breakdown(torch, step, args, wall, label="train"):
               ("layernorm_dx_kernel", "layernorm_dx"),
               ("layernorm_kernel", "layernorm"),
               ("flash_bwd_dq_kernel", "flash_bwd_dq"),
+              ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_tc"),
               ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
               ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_tc"),
               ("flash_prefill_kernel", "flash_fwd"),
@@ -2413,12 +2446,13 @@ def train_phase(torch, F, card):
           f"{cfg.num_heads}/{cfg.num_kv_heads} {cfg.dtype}: "
           f"{n_params / 1e9:.2f} B random parameters; AdamW lr 3e-4 wd "
           f"0.1; batch B={B} T={T}", flush=True)
-    # bf16 at d = 128: the tensor-core forward and dkv, the SIMT dq
+    # bf16 at d = 128: the tensor-core forward, dq and dkv
     per_step = {"mxtt_rmsnorm": 2 * L + 1, "mxtt_rmsnorm_dx": 2 * L + 1,
-                "mxtt_flash_fwd_tc": L, "mxtt_flash_bwd_dq": L,
+                "mxtt_flash_fwd_tc": L, "mxtt_flash_bwd_dq_tc": L,
                 "mxtt_flash_bwd_dkv_tc": L, "mxtt_ce_fwd": 1, "mxtt_ce_bwd": 1}
     # the fp32 copy through the kernels: the SIMT route
     per_step32 = dict(per_step, mxtt_flash_fwd_tc=0, mxtt_flash_prefill=L,
+                      mxtt_flash_bwd_dq_tc=0, mxtt_flash_bwd_dq=L,
                       mxtt_flash_bwd_dkv_tc=0, mxtt_flash_bwd_dkv=L)
 
     # one step's gradients three ways, before any update
@@ -2517,7 +2551,7 @@ def bert_phase(torch, F, card):
     # embed_norm, two norms a layer and mlm_norm; one attention a layer;
     # the MLM loss on the fused CE (NSP's two classes take log_softmax)
     per_step = {"mxtt_layernorm": 26, "mxtt_layernorm_dx": 26,
-                "mxtt_flash_fwd_tc": 12, "mxtt_flash_bwd_dq": 12,
+                "mxtt_flash_fwd_tc": 12, "mxtt_flash_bwd_dq_tc": 12,
                 "mxtt_flash_bwd_dkv_tc": 12, "mxtt_ce_fwd": 1,
                 "mxtt_ce_bwd": 1}
     grads_three_ways(torch, "bert", step, make_step(net32), gen, batch,
@@ -2664,9 +2698,10 @@ def main() -> int:
                         for name in DECODE_KERNELS]
             entries.append(kernel_paged_window(torch, F, flush))
             rms_train, rms_dx = kernel_rmsnorm_train(torch, F, flush)
-            attn_train, dq_entry, dkv_entry, fwd_simt, dkv_simt = \
+            attn_train, dq_entry, dkv_entry, fwd_simt, dq_simt, dkv_simt = \
                 kernel_flash_train(torch, F, flush)
-            entries += [rms_dx, dq_entry, dkv_entry, fwd_simt, dkv_simt]
+            entries += [rms_dx, dq_entry, dkv_entry, fwd_simt, dq_simt,
+                        dkv_simt]
             entries += kernel_ce(torch, F, flush)
             entries[0]["train"] = rms_train
             entries[1]["train"] = attn_train
@@ -2700,6 +2735,7 @@ def main() -> int:
     decode_src = "mxnet_tpu_torch/csrc/decode_attention.cu"
     backward_src = "mxnet_tpu_torch/csrc/flash_backward.cu"
     fwd_tpu = "mxnet_tpu/kernels/flash_attention.py:188"
+    dq_tpu = "mxnet_tpu/kernels/flash_attention.py:325"
     dkv_tpu = "mxnet_tpu/kernels/flash_attention.py:341"
     ce_src = "mxnet_tpu_torch/csrc/fused_ce.cu"
     ln_src = "mxnet_tpu_torch/csrc/layernorm.cu"
@@ -2733,9 +2769,11 @@ def main() -> int:
                            "mxnet_tpu_torch/csrc/rmsnorm.cu",
                            "mxnet_tpu/kernels/fused_norm.py:114",
                            train_counts),
-            "flash_bwd_dq": ("mxtt_flash_bwd_dq", backward_src,
-                             "mxnet_tpu/kernels/flash_attention.py:325",
-                             train_counts),
+            "flash_bwd_dq_tc": ("mxtt_flash_bwd_dq_tc",
+                                "mxnet_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                                dq_tpu, train_counts),
+            "flash_bwd_dq": ("mxtt_flash_bwd_dq", backward_src, dq_tpu,
+                             fp32_counts),
             "flash_bwd_dkv_tc": ("mxtt_flash_bwd_dkv_tc",
                                  "mxnet_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
                                  dkv_tpu, train_counts),

@@ -32,10 +32,9 @@
 // (wgmma) would approach the bound, and these kernels run on the fp32
 // SIMT units, so their floor is the fp32 rate.
 //
-// Route: the port launches dq here for every dtype and head dim (its
-// tensor-core version is later work), and dkv for float32 and d = 16
-// (llama_tiny); bf16 dkv at d = 64 or 128 takes the tensor-core kernel
-// (flash_bwd_dkv_sm90.cu).
+// Route: the port launches dq and dkv here for float32 and d = 16
+// (llama_tiny); bf16 at d = 64 or 128 takes the tensor-core kernels
+// (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu).
 //
 // Design: the forward's layout, with the roles of queries and keys
 // swapped in dkv. A block has 8 warps; each warp owns 8 rows of the

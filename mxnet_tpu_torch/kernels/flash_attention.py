@@ -3,10 +3,10 @@ backward: the CUDA kernels and their plain PyTorch versions.
 
 Two routes on the card. bf16 at d in {64, 128} (every model the port
 trains or serves on the card) takes the tensor-core kernels: the
-forward `csrc/flash_fwd_sm90.cu` and dK/dV `csrc/flash_bwd_dkv_sm90.cu`
-(wgmma on bf16 tiles staged by TMA). float32, and d = 16 (`llama_tiny`),
-take the fp32 SIMT kernels `csrc/flash_prefill.cu` and
-`csrc/flash_backward.cu`'s dkv. dQ takes `csrc/flash_backward.cu` on both.
+forward `csrc/flash_fwd_sm90.cu`, dQ `csrc/flash_bwd_dq_sm90.cu` and
+dK/dV `csrc/flash_bwd_dkv_sm90.cu` (wgmma on bf16 tiles staged by TMA).
+float32, and d = 16 (`llama_tiny`), take the fp32 SIMT kernels
+`csrc/flash_prefill.cu` and `csrc/flash_backward.cu`'s dq and dkv.
 
 Counterpart of `mxnet_tpu/kernels/flash_attention.py`
 (`flash_attention_raw`: the `_pallas_forward` kernel with its
@@ -58,8 +58,9 @@ _DQ = _build.CudaKernel("mxtt_flash_bwd_dq",
 #: dk, dv, then as _DQ after dq
 _DKV = _build.CudaKernel("mxtt_flash_bwd_dkv",
                          [_P] * 9 + [_I] * 6 + [_F, _I, _P])
-#: the tensor-core route, arguments as _FWD's and _DKV's
+#: the tensor-core route, arguments as _FWD's, _DQ's and _DKV's
 _FWD_TC = _build.CudaKernel("mxtt_flash_fwd_tc", _FWD.argtypes)
+_DQ_TC = _build.CudaKernel("mxtt_flash_bwd_dq_tc", _DQ.argtypes)
 _DKV_TC = _build.CudaKernel("mxtt_flash_bwd_dkv_tc", _DKV.argtypes)
 
 #: the head dims of the supported configs (llama_tiny; BERT-base,
@@ -258,8 +259,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, scale=None,
                                 lengths)
     args = _backward_args(q, k, v, dout, lse, delta, lengths)
     dq = torch.empty_like(q)
-    _build.launch(_DQ, q.device, dq.data_ptr(), *args, int(bool(causal)),
-                  float(scale), _build.dtype_code(q))
+    _build.launch(_route(q, _DQ, _DQ_TC), q.device, dq.data_ptr(), *args,
+                  int(bool(causal)), float(scale), _build.dtype_code(q))
     return dq
 
 

@@ -1,14 +1,19 @@
 """The tensor-core attention kernels' roundings, rehearsed on the CPU.
 
-The bf16 route of the attention forward (`csrc/flash_fwd_sm90.cu`) and of
-dK/dV (`csrc/flash_bwd_dkv_sm90.cu`) feeds wgmma with P and dS rounded to
-bf16, where the fp32 SIMT kernels kept them in fp32. Here each kernel's
-arithmetic is emulated in fp32 on bf16-valued inputs from a numpy seed:
+The bf16 route of the attention forward (`csrc/flash_fwd_sm90.cu`), of dQ
+(`csrc/flash_bwd_dq_sm90.cu`) and of dK/dV (`csrc/flash_bwd_dkv_sm90.cu`)
+feeds wgmma with P and dS rounded to bf16, where the fp32 SIMT kernels
+kept them in fp32. Here each kernel's arithmetic is emulated in fp32 on
+bf16-valued inputs from a numpy seed:
 
 - forward: 128-row query tiles, 128-key tiles swept from the last down,
   the online softmax against the running max, P rounded to bf16 after
   its exp and before P V, the row sum of the unrounded P, one rounding
   of the output;
+- dQ: 128-row query tiles, 64-key tiles swept from key 0 to the
+  diagonal or lengths[b], P = exp2(s scale log2(e) - lse log2(e)) and
+  dS = P (dP - delta) in fp32, dS rounded to bf16 before dS K, the sum
+  over key tiles in fp32, one rounding of the output after the scale;
 - dK/dV: P = exp(s - lse) and dS = P (dP - delta) in fp32, both rounded
   to bf16 before P^T dO and dS^T Q, the GQA group summed in fp32, one
   rounding of each output.
@@ -28,6 +33,7 @@ from mxnet_tpu_torch.kernels import flash_attention as fa
 
 B, H, K, D = 2, 4, 2, 64
 BM = BN = 128                       # the forward kernel's tiles
+BN_DQ = 64                          # the dq kernel's key tiles (rows: BM)
 
 
 def _inputs(T, seed):
@@ -86,6 +92,42 @@ def emulate_forward(q, k, v, causal, scale, lengths):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def emulate_dq(q, k, v, dout, lse, delta, causal, scale, lengths):
+    """dq in q's dtype as the tensor-core dq kernel computes it, in fp32
+    on q's device."""
+    Bq, T, Hq, d = q.shape
+    rep = Hq // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    log2e = math.log2(math.e)
+    c2 = scale * log2e
+    dq = torch.zeros(Bq, Hq, T, d, device=q.device)
+    key = torch.arange(T, device=q.device)
+    for b in range(Bq):
+        klen = min(T, int(lengths[b]))
+        for q0 in range(0, T, BM):
+            t1 = min(q0 + BM, T)
+            rows = torch.arange(q0, t1, device=q.device)
+            kend = min(klen, q0 + BM) if causal else klen
+            lse2 = lse[b, :, q0:t1, None] * log2e
+            dlt = delta[b, :, q0:t1, None]
+            acc = torch.zeros(Hq, t1 - q0, d, device=q.device)
+            for kt in range((kend + BN_DQ - 1) // BN_DQ):
+                k0, k1 = kt * BN_DQ, min(kt * BN_DQ + BN_DQ, T)
+                s = torch.einsum("thd,shd->hts", q[b, q0:t1].float(),
+                                 kf[b, k0:k1])
+                keep = key[None, k0:k1] < klen
+                if causal:
+                    keep = keep & (key[None, k0:k1] <= rows[:, None])
+                p = torch.where(keep, torch.exp2(s * c2 - lse2), 0.0)
+                dp = torch.einsum("thd,shd->hts", dout[b, q0:t1].float(),
+                                  vf[b, k0:k1])
+                ds = (p * (dp - dlt)).to(torch.bfloat16).float()
+                acc = acc + torch.einsum("hts,shd->htd", ds, kf[b, k0:k1])
+            dq[b, :, q0:t1] = acc * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
 def emulate_dkv(q, k, v, dout, lse, delta, causal, scale, lengths):
     """(dk, dv) in k's dtype as the tensor-core dkv kernel computes them,
     in fp32 on q's device."""
@@ -131,6 +173,34 @@ def test_forward_rounding_within_the_card_tolerance(T, causal):
         over = int(((wrong.to(q.dtype).float() - ref.float()).abs()
                     > tol).sum())
         assert over > 0, f"{name} passes the tolerance"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [77, 128])
+def test_dq_rounding_within_the_card_tolerance(T, causal):
+    q, k, v, dout, lengths = _inputs(T, 47 + T)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = fa.reference_attention_lse(q, k, v, causal, scale, lengths)
+    delta = fa.attention_delta(out, dout)
+    ref = fa.flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, scale,
+                              lengths)
+    refs = (ref,) + fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal,
+                                         scale, lengths)
+    _, terms = cs.attn_backward_fp32(torch, q, k, v, dout, lse, delta, scale,
+                                     lengths, causal=causal)
+    tol = cs.attn_bwd_tols(torch, terms, refs)[0]
+    got = emulate_dq(q, k, v, dout, lse, delta, causal, scale, lengths)
+    assert tol.device == q.device
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    # the emulation rounds dS: it is not the plain version over again
+    assert not torch.equal(got, ref)
+    for name, ln, dg in _off_by_one(T, lengths, causal):
+        grads, _ = cs.attn_backward_fp32(torch, q, k, v, dout, lse, delta,
+                                         scale, ln, dg, causal=causal,
+                                         terms=False)
+        over = int(((grads[0].to(q.dtype).float() - ref.float()).abs()
+                    > tol).sum())
+        assert over > 0, f"dq {name} passes the tolerance"
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -237,18 +237,23 @@ def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
         assert t.grad is not None and t.grad.shape == t.shape
 
 
-@pytest.mark.parametrize("dtype,d,fwd,dkv", [
-    (torch.bfloat16, 64, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dkv_tc"),
-    (torch.bfloat16, 128, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dkv_tc"),
-    (torch.bfloat16, 16, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv"),
-    (torch.float32, 64, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv"),
-    (torch.float32, 128, "mxtt_flash_prefill", "mxtt_flash_bwd_dkv")])
-def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dkv,
+@pytest.mark.parametrize("dtype,d,fwd,dq,dkv", [
+    (torch.bfloat16, 64, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dq_tc",
+     "mxtt_flash_bwd_dkv_tc"),
+    (torch.bfloat16, 128, "mxtt_flash_fwd_tc", "mxtt_flash_bwd_dq_tc",
+     "mxtt_flash_bwd_dkv_tc"),
+    (torch.bfloat16, 16, "mxtt_flash_prefill", "mxtt_flash_bwd_dq",
+     "mxtt_flash_bwd_dkv"),
+    (torch.float32, 64, "mxtt_flash_prefill", "mxtt_flash_bwd_dq",
+     "mxtt_flash_bwd_dkv"),
+    (torch.float32, 128, "mxtt_flash_prefill", "mxtt_flash_bwd_dq",
+     "mxtt_flash_bwd_dkv")])
+def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dq, dkv,
                                                 stub_launch):
-    """bf16 at d in {64, 128} takes the tensor-core forward and dkv
-    kernels; fp32 and d = 16 the SIMT ones; dq is the SIMT kernel on
-    both. The Function keeps its grad_fn, and its backward reaches q, k
-    and v with their own shapes."""
+    """bf16 at d in {64, 128} takes the tensor-core forward, dq and dkv
+    kernels; fp32 and d = 16 the SIMT ones. The Function keeps its
+    grad_fn, and its backward reaches q, k and v with their own
+    shapes."""
     from mxnet_tpu_torch.kernels import flash_attention
     g = dict(device=META, dtype=dtype, requires_grad=True)
     ins = (torch.empty(2, 8, 4, d, **g), torch.empty(2, 8, 2, d, **g),
@@ -257,7 +262,7 @@ def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dkv,
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     assert stub_launch == [fwd]
     out.backward(torch.ones_like(out))
-    assert stub_launch == [fwd, "mxtt_flash_bwd_dq", dkv]
+    assert stub_launch == [fwd, dq, dkv]
     for t in ins:
         assert t.grad is not None and t.grad.shape == t.shape
     with torch.no_grad():
@@ -266,7 +271,8 @@ def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dkv,
 
 
 @pytest.mark.parametrize("bad", ["q_misaligned", "k_strided",
-                                 "dout_misaligned", "lse_strided"])
+                                 "dout_misaligned", "lse_strided",
+                                 "dq_dout_misaligned"])
 def test_tensor_core_route_raises_before_any_launch(bad, stub_launch):
     """What the tensor-core kernels cannot take (a row off a 16-byte
     boundary, a non-contiguous operand) raises before any launch, as on
@@ -286,12 +292,14 @@ def test_tensor_core_route_raises_before_any_launch(bad, stub_launch):
         with pytest.raises(ValueError):
             fa.flash_attention_forward(q, k, k, return_lse=True)
     else:
-        dout = misaligned(shape_q) if bad == "dout_misaligned" else q
+        dout = misaligned(shape_q) if bad.endswith("dout_misaligned") \
+            else q
         stats = torch.empty(2, 4, 8, device=META)
         lse = torch.empty(2, 8, 4, device=META).transpose(1, 2) \
             if bad == "lse_strided" else stats
+        bwd = fa.flash_bwd_dq if bad.startswith("dq_") else fa.flash_bwd_dkv
         with pytest.raises(ValueError):
-            fa.flash_bwd_dkv(q, k, k, dout, lse, stats)
+            bwd(q, k, k, dout, lse, stats)
     assert stub_launch == []
 
 

@@ -220,7 +220,7 @@ def test_cpu_tensors_launch_nothing():
         "mxtt_paged_window", "mxtt_rmsnorm_dx", "mxtt_flash_bwd_dq",
         "mxtt_flash_bwd_dkv", "mxtt_ce_fwd", "mxtt_ce_bwd",
         "mxtt_layernorm", "mxtt_layernorm_dx", "mxtt_flash_fwd_tc",
-        "mxtt_flash_bwd_dkv_tc"}
+        "mxtt_flash_bwd_dq_tc", "mxtt_flash_bwd_dkv_tc"}
     assert all(n == 0 for n in _build.launch_counts().values())
     assert _build._lib is None
 
@@ -238,7 +238,8 @@ def test_library_key_covers_every_source():
     assert {"common.cuh", "rmsnorm.cu", "flash_prefill.cu",
             "flash_backward.cu", "fused_ce.cu", "decode_attention.cu",
             "window_attention.cu", "layernorm.cu", "status.cu",
-            "sm90.cuh", "flash_fwd_sm90.cu", "flash_bwd_dkv_sm90.cu"} <= srcs
+            "sm90.cuh", "flash_fwd_sm90.cu", "flash_bwd_dq_sm90.cu",
+            "flash_bwd_dkv_sm90.cu"} <= srcs
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path()          # stable key
