@@ -8,8 +8,8 @@ exits non-zero and prints no result:
 
 1. device: the card's name and power limit (nvidia-smi), then the build
    of every kernel from `mxnet_tpu_torch/csrc` (nvcc, sm_90a), and the
-   tensor-core attention kernels' registers and spills (`ptxas -v`),
-   setmaxnreg split and dynamic shared memory.
+   tensor-core kernels' registers and spills (`ptxas -v`), setmaxnreg
+   split and dynamic shared memory.
 2. kernels: each CUDA kernel against its plain PyTorch version at the
    serving and generation paths' own shapes (bf16) plus ragged cases,
    every element within its own stated tolerance; at the main shapes,
@@ -17,9 +17,16 @@ exits non-zero and prints no result:
    outside it; kernel, plain and library (yardstick only: the port never
    calls it) times with a cold L2, and the least time the card could
    take for the same work. The int8 decode kernels read caches quantized
-   from rows whose magnitudes vary by token. Then the training step's
+   from rows whose magnitudes vary by token. RMSNorm adds odd widths,
+   a row start off a 16-byte boundary and 20000 narrow rows. The window
+   kernels: the tensor-core one (bf16) at a prefill chunk (B=1, W=256),
+   a verify tick (B=8, W=5) and ragged windows, valid_lens off by one
+   falling outside the tolerance, two launches equal bit for bit, the
+   SIMT one held and timed on the same bf16 inputs; the SIMT one again
+   at the chunk in fp32 and at d=16. Then the training step's
    kernels at the train phase's shapes: RMSNorm with its rrms and the dx
-   kernel (4096 x 4096 bf16), the attention forward with its lse and the
+   kernel (4096 x 4096 bf16, plus an odd width and an unaligned start),
+   the attention forward with its lse and the
    dq and dkv kernels (B=2, T=2048, H=32, K=8, d=128, causal) in bf16
    (the tensor-core forward, dq and dkv) and in fp32 (the SIMT kernels)
    plus a ragged and a tiny fp32 case with an empty row, a backward off
@@ -54,12 +61,15 @@ exits non-zero and prints no result:
    and speculation (`prefix_cache=True, prefill_chunk_tokens=256,
    speculative=4`): a 392-token prefix, six extensions forking its tail
    block by copy-on-write, a repeat that skips its prefill, and eight
-   others; exact launch counts (window kernel 32 per chunk and per verify
-   tick); the last logits of an extension's chunk, of a 512-token
-   prompt's second chunk and of the repeat's warm tick against the plain
-   versions. Then an oracle proposer drafting the plain server's tokens:
-   drafts accepted, the tokens the plain server's where its margin
-   allows.
+   others; exact launch counts (the tensor-core window kernel 32 per
+   chunk and per verify tick, the SIMT one never); the last logits of an
+   extension's chunk, of a 512-token prompt's second chunk and of the
+   repeat's warm tick against the plain versions; the window kernel's
+   card time in a chunk and in a verify tick (torch.profiler). Then an
+   oracle proposer drafting the plain server's tokens: drafts accepted,
+   the tokens the plain server's where its margin allows. Then the SIMT
+   window kernel's route: `llama_tiny` (fp32, d = 16) behind the same
+   options, exact launch counts.
 4. generate: `generate()` on the same net, 8 prompts right-padded to
    512 (valid_len 33-512), 32 greedy tokens, with a bf16 and with an
    int8 cache: exact launch counts (contiguous decode 32 per step), the
@@ -294,9 +304,10 @@ def cached_attention(torch, q, k_cache, v_cache, valid_lens, scale):
 
 
 def tc_resources():
-    """One line per tensor-core attention kernel: its registers and spills
-    as `ptxas -v` reported them when this checkout built it, and the
-    dynamic shared memory and setmaxnreg split of its launch."""
+    """One line per tensor-core attention kernel and head dim: its
+    registers and spills as `ptxas -v` reported them when this checkout
+    built it, and the dynamic shared memory and setmaxnreg split of its
+    launch."""
     import ctypes
     import re
 
@@ -305,7 +316,9 @@ def tc_resources():
     lines = []
     for stem, sym in (("flash_fwd_sm90", "mxtt_flash_fwd_tc_info"),
                       ("flash_bwd_dq_sm90", "mxtt_flash_bwd_dq_tc_info"),
-                      ("flash_bwd_dkv_sm90", "mxtt_flash_bwd_dkv_tc_info")):
+                      ("flash_bwd_dkv_sm90", "mxtt_flash_bwd_dkv_tc_info"),
+                      ("window_attention_sm90",
+                       "mxtt_paged_window_tc_info")):
         report = _build.ptxas_report(stem)
         found = {}
         for part in report.split("Compiling entry function")[1:]:
@@ -340,16 +353,37 @@ def tc_resources():
 
 # -- phase 2: kernels against their plain versions --------------------------
 
+def norm_rows(torch, gen, n, d, dtype, unaligned=False):
+    """(n, d) standard normal rows in `dtype`; with `unaligned`, a
+    contiguous view starting one element past a 16-byte boundary."""
+    x = torch.randn(n * d + unaligned, generator=gen, device="cuda") \
+        .to(dtype)
+    x = x[1:] if unaligned else x
+    check(x.data_ptr() % 16 == unaligned * x.element_size(),
+          "norm_rows: unexpected alignment")
+    return x.view(n, d)
+
+
 def kernel_rmsnorm(torch, F, flush):
-    from mxnet_tpu_torch.kernels.fused_norm import rmsnorm, rmsnorm_ref
+    from mxnet_tpu_torch.kernels.fused_norm import (
+        rmsnorm, rmsnorm_fwd, rmsnorm_fwd_ref, rmsnorm_ref)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     eps = 1e-5
     entry = None
+    # odd widths and a row start off a 16-byte boundary take the kernel's
+    # element-a-lane path; 20000 narrow rows make each warp stride over
+    # several rows
     for label, (n, d), dtype in (("prefill", (MAX_PROMPT, 4096), torch.bfloat16),
                                  ("decode", (BATCH_SLOTS, 4096), torch.bfloat16),
                                  ("ragged", (333, 4096), torch.bfloat16),
-                                 ("narrow fp32", (37, 64), torch.float32)):
-        x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                                 ("odd width", (61, 4095), torch.bfloat16),
+                                 ("unaligned", (64, 4096), torch.bfloat16),
+                                 ("many narrow rows", (20000, 64),
+                                  torch.bfloat16),
+                                 ("narrow fp32", (37, 64), torch.float32),
+                                 ("narrow odd fp32", (37, 99),
+                                  torch.float32)):
+        x = norm_rows(torch, gen, n, d, dtype, label == "unaligned")
         g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         out, ref = rmsnorm(x, g, eps), rmsnorm_ref(x, g, eps)
         torch.cuda.synchronize()
@@ -359,8 +393,17 @@ def kernel_rmsnorm(torch, F, flush):
         rtol = BF16_STEP if dtype == torch.bfloat16 else 2.0 ** -19
         err, text = held(torch, f"rmsnorm {label}", out, ref,
                          rtol * ref.float().abs())
+        # the same launch writing rrms (the training route) gives the same
+        # output, and rrms within 2^-16 of the plain version's (as the
+        # train phase holds it)
+        out_r, rrms = rmsnorm_fwd(x, g, eps)
+        rrms_ref = rmsnorm_fwd_ref(x, g, eps)[1]
+        check(torch.equal(out_r, out),
+              f"rmsnorm {label}: the output changes when rrms is written")
+        _, rtext = held(torch, f"rmsnorm rrms {label}", rrms, rrms_ref,
+                        2.0 ** -16 * rrms_ref.abs())
         line = f"[kernels] rmsnorm {label} {tuple(x.shape)} {dtype}: " \
-               f"{text}, rtol {rtol:.3g}"
+               f"{text}, rtol {rtol:.3g}; rrms {rtext}"
         if label in ("prefill", "decode"):
             ms = cold_ms(torch, lambda: rmsnorm(x, g, eps), flush)
             plain = cold_ms(torch, lambda: rmsnorm_ref(x, g, eps), flush)
@@ -651,13 +694,51 @@ def kernel_decode(torch, F, flush, name):
     return entry
 
 
+def window_tol(torch, q, k_cache, v_cache, valid_lens, ref, scale):
+    """Element-wise tolerance of a window kernel's output against its
+    plain version `ref` (reference_paged_window_attention, fp32
+    throughout) on the same inputs, over the gathered (B, K, S, d)
+    caches. In fp32 the two differ by fp32 noise of the row's sum of
+    p * |v|. In bf16:
+    - each rounds its output once: one bf16 step of |ref| (BF16_STEP);
+    - the tensor-core kernel (csrc/window_attention_sm90.cu) rounds its
+      P to bf16 for the wgmma, unnormalised against the running max:
+      2^-8 of the row's sum of p * |v| (BF16_ROUND)."""
+    _, pv_abs = cached_attention(torch, q, k_cache, v_cache, valid_lens,
+                                 scale)
+    tol = FP32_NOISE * pv_abs
+    if ref.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * ref.float().abs() + BF16_ROUND * pv_abs
+    return tol
+
+
+def simt_window(torch, q, kp, vp, bt, vl, scale):
+    """The SIMT window kernel (csrc/window_attention.cu) launched directly
+    on operands that the port routes to the tensor-core kernel, for its
+    time beside the new kernel's ("simt_ms")."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    B, W, H, d = q.shape
+    out = torch.empty_like(q)
+    _build.launch(fd._WINDOW, q.device, out.data_ptr(), q.data_ptr(),
+                  kp.data_ptr(), vp.data_ptr(), bt.data_ptr(), vl.data_ptr(),
+                  B, W, H, kp.shape[1], d, kp.shape[2], bt.shape[1],
+                  float(scale), _build.dtype_code(q))
+    return out
+
+
 def kernel_paged_window(torch, F, flush):
-    """The window kernel against its plain version at the two shapes the
-    spec serve phase gives it: a 256-token prefill chunk (B=1, W=256) at
-    positions 256-511 over the earlier tokens, and a verify tick (B=8,
-    W=5: token 0 + 4 drafts) over 130-500 cached tokens per row; plus
-    ragged windows (rows past a short draft at valid length 1, a row
-    whose window starts at position 0) and d=16 in fp32."""
+    """The window kernels against their plain version at the two shapes
+    the spec serve phase gives them: a 256-token prefill chunk (B=1,
+    W=256) at positions 256-511 over the earlier tokens, and a verify
+    tick (B=8, W=5: token 0 + 4 drafts) over 130-500 cached tokens per
+    row; plus ragged windows (rows past a short draft at valid length 1,
+    a row whose window starts at position 0). bf16 takes the tensor-core
+    kernel; the chunk again in fp32, and d=16 in fp32, take the SIMT one.
+    At the chunk shape valid_lens off by one must fall outside the
+    tolerance and two tensor-core launches must agree bit for bit; at the
+    chunk and verify shapes the SIMT kernel is held and timed on the same
+    bf16 inputs. Returns (the tensor-core entry, the SIMT entry)."""
     from mxnet_tpu_torch.kernels.flash_decode import (
         flash_decode_paged_window, gather_kv_pages,
         reference_paged_window_attention)
@@ -673,10 +754,12 @@ def kernel_paged_window(torch, F, flush):
              ("verify", 32, 8, 128, BLOCK_SIZE, MAX_LEN, verify,
               torch.bfloat16),
              ("ragged", 32, 8, 128, BLOCK_SIZE, 512, ragged, torch.bfloat16),
+             ("chunk fp32", 32, 8, 128, BLOCK_SIZE, MAX_LEN, chunk,
+              torch.float32),
              ("tiny fp32", 4, 2, 16, 8, 64, np.asarray([[1, 2, 3],
                                                         [62, 63, 64]]),
               torch.float32))
-    entry, timed = None, {}
+    timed = {}
     for label, H, K, d, bs, max_len, vls, dtype in cases:
         B, W = vls.shape
         nb = max_len // bs
@@ -697,17 +780,14 @@ def kernel_paged_window(torch, F, flush):
         out = flash_decode_paged_window(q, kp, vp, bt_t, vl_t, scale)
         ref = reference_paged_window_attention(q, kp, vp, bt_t, vl_t, scale)
         torch.cuda.synchronize()
-        # the plain version works in fp32 throughout: both round the
-        # output once (one bf16 step of |ref|) or differ by fp32 noise
         kc, vc = gather_kv_pages(kp, bt_t), gather_kv_pages(vp, bt_t)
-        _, pv_abs = cached_attention(torch, q, kc, vc, vl_t, scale)
-        tol = FP32_NOISE * pv_abs
-        if dtype == torch.bfloat16:
-            tol = tol + BF16_STEP * ref.float().abs()
+        tol = window_tol(torch, q, kc, vc, vl_t, ref, scale)
+        bf16 = dtype == torch.bfloat16
+        route = "tensor cores" if bf16 else "SIMT"
         err, text = held(torch, f"paged_window {label}", out, ref, tol)
         line = f"[kernels] paged_window {label} B={B} W={W} H={H} K={K} " \
                f"d={d} bs={bs} valid_lens {int(vls.min())}-" \
-               f"{int(vls.max())} {dtype}: {text}"
+               f"{int(vls.max())} {dtype} ({route}): {text}"
         if label == "chunk":
             # every row seeing one key too many (row w attending w + 1
             # keys of the window) or one too few must fail the tolerance
@@ -716,7 +796,17 @@ def kernel_paged_window(torch, F, flush):
                        cached_attention(torch, q, kc, vc, vl_t + dv,
                                         scale)[0].to(dtype), ref, tol)
                 for name, dv in (("valid_lens+1", 1), ("valid_lens-1", -1)))
-        if label in ("chunk", "verify"):
+            again = flash_decode_paged_window(q, kp, vp, bt_t, vl_t, scale)
+            check(torch.equal(out, again),
+                  "paged_window chunk: two launches differ")
+            line += "; two launches equal bit for bit"
+        if bf16 and label in ("chunk", "verify"):
+            simt = simt_window(torch, q, kp, vp, bt_t, vl_t, scale)
+            torch.cuda.synchronize()
+            _, stext = held(torch, f"paged_window {label} SIMT", simt, ref,
+                            tol)
+            line += f"; SIMT version on the same inputs: {stext}"
+        if label in ("chunk", "verify", "chunk fp32"):
             ms = cold_ms(torch, lambda: flash_decode_paged_window(
                 q, kp, vp, bt_t, vl_t, scale), flush)
             plain = cold_ms(torch, lambda: reference_paged_window_attention(
@@ -733,23 +823,29 @@ def kernel_paged_window(torch, F, flush):
             keys = int(vls.max(axis=1).sum())
             nbytes = (2 * q.numel() + 2 * keys * K * d) * q.element_size() \
                 + bt.nbytes + 4 * vls.size
-            b_ms, b_by = bound(nbytes, int(vls.sum()) * H * 4 * d, "bf16")
-            line += f" ms={ms:.4f} plain_ms={plain:.4f} library_ms=" \
+            b_ms, b_by = bound(nbytes, int(vls.sum()) * H * 4 * d,
+                               "bf16" if bf16 else "fp32")
+            line += f"; ms={ms:.4f} plain_ms={plain:.4f} library_ms=" \
                     f"{lib:.4f} (SDPA over the gathered cache, (W, S) mask; " \
                     f"gather not timed) bound_ms={b_ms:.4f} ({b_by})"
             timed[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=b_ms, bound_by=b_by)
-            if label == "chunk":
-                entry = dict(name="paged_window", max_abs_err=err,
-                             shape=f"B=1 W=256 H=32 K=8 d=128 bs=16 "
-                                   f"valid_lens 257-512 bf16",
-                             **timed["chunk"])
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            if bf16:
+                timed[label]["simt_ms"] = cold_ms(torch, lambda: simt_window(
+                    torch, q, kp, vp, bt_t, vl_t, scale), flush)
+                line += f"; SIMT version ms={timed[label]['simt_ms']:.4f}"
         print(line, flush=True)
-    entry["verify"] = dict(timed["verify"],
-                           shape=f"B=8 W=5 H=32 K=8 d=128 bs=16 valid_lens "
-                                 f"{int(verify.min())}-{int(verify.max())} "
-                                 f"bf16")
-    return entry
+    shape = "B={} W={} H=32 K=8 d=128 bs=16 valid_lens {}-{} {}"
+    entries = (dict(name="paged_window_tc",
+                    shape=shape.format(1, 256, 257, 512, "bf16"),
+                    **timed["chunk"]),
+               dict(name="paged_window",
+                    shape=shape.format(1, 256, 257, 512, "fp32"),
+                    **timed["chunk fp32"]))
+    entries[0]["verify"] = dict(
+        timed["verify"], shape=shape.format(
+            BATCH_SLOTS, 5, int(verify.min()), int(verify.max()), "bf16"))
+    return entries
 
 
 # -- phase 2b: the training step's kernels at the train phase's shapes -------
@@ -769,8 +865,10 @@ def kernel_rmsnorm_train(torch, F, flush):
     eps = 1e-5
     fwd, entry = None, None
     for label, (n, d), dtype in (("train", (TRAIN_ROWS, 4096), torch.bfloat16),
+                                 ("odd width", (257, 4095), torch.bfloat16),
+                                 ("unaligned", (333, 4096), torch.bfloat16),
                                  ("narrow fp32", (37, 64), torch.float32)):
-        x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        x = norm_rows(torch, gen, n, d, dtype, label == "unaligned")
         g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         dy = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
         out, rrms = rmsnorm_fwd(x, g, eps)
@@ -1742,14 +1840,15 @@ def serve_spec(torch, F, net):
     each sharing P's full blocks and forking its tail block by
     copy-on-write; P again, whose prefill the warm path skips; and eight
     others of 33-512 tokens, the first exactly 512 (two chunks). Exact
-    launch counts (window kernel 32 per chunk and per verify tick, paged
-    decode 32 per decode tick, no one-shot prefill); prefix hits,
-    copy-on-write copies, the skipped prefill and a verify tick; the last
-    logits of an extension's chunk, of the 512-token prompt's second
-    chunk and of the repeat's warm tick against the plain versions; the
-    extension's also against a server without the prefix cache, and
-    servers broken on purpose (BREAKAGES) must fail both checks. Returns
-    the launch counts."""
+    launch counts (the tensor-core window kernel 32 per chunk and per
+    verify tick, the SIMT one never, paged decode 32 per decode tick, no
+    one-shot prefill); prefix hits, copy-on-write copies, the skipped
+    prefill and a verify tick; the last logits of an extension's chunk,
+    of the 512-token prompt's second chunk and of the repeat's warm tick
+    against the plain versions; the extension's also against a server
+    without the prefix cache, and servers broken on purpose (BREAKAGES)
+    must fail both checks; then the window kernel's card time a chunk and
+    a verify tick. Returns the launch counts."""
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.serving import InferenceServer
 
@@ -1829,7 +1928,8 @@ def serve_spec(torch, F, net):
     fwd = calls["prefill_chunk"] + calls["decode"] + calls["verify"]
     expect_launches(counts, {
         "mxtt_rmsnorm": (2 * L + 1) * fwd,
-        "mxtt_paged_window": L * (calls["prefill_chunk"] + calls["verify"]),
+        "mxtt_paged_window_tc": L * (calls["prefill_chunk"]
+                                     + calls["verify"]),
         "mxtt_paged_decode": L * calls["decode"]}, "serve spec")
     check(d["kv_prefix_hits"] >= 7 and d["kv_cow_copies"] >= 1
           and d["prefills_skipped"] == 1 and calls["verify"] >= 1,
@@ -1892,6 +1992,113 @@ def serve_spec(torch, F, net):
                     f"[serve spec] warm repeat ({PREFIX_LEN} tokens, prefill "
                     f"skipped, {len(warm[1])} tokens emitted) warm tick "
                     f"logits")
+    window_card_ms(torch, server, rs)
+    return counts
+
+
+def window_card_ms(torch, server, rs):
+    """The tensor-core window kernel's card time in a prefill chunk and in
+    a verify tick of the spec server, from torch.profiler: three
+    300-token prompts that repeat their first half (chunks of 256 and 44
+    tokens, W = 256 windows at B = 1; then the n-gram proposer drafts from
+    the repeat, so verify ticks follow, W = 5 at B = 8), profiled
+    together. Each launch is told apart by its grid's batch extent (the
+    trace's kernel arguments) and the sums are divided by the chunks and
+    verify ticks the programs counted."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    calls0 = {n: p.calls for n, p in server.programs.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            half = rs.randint(0, server.cfg.vocab_size, 150)
+            server.submit(np.concatenate([half, half]), max_new_tokens=8)
+        server.run()
+        torch.cuda.synchronize()
+    calls = {n: p.calls - calls0[n] for n, p in server.programs.items()}
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    ms = {"prefill_chunk": 0.0, "verify": 0.0}
+    seen = 0
+    for ev in trace.get("traceEvents", []):
+        grid = ev.get("args", {}).get("grid")
+        if "window_tc_kernel" not in ev.get("name", "") or not grid:
+            continue
+        seen += 1
+        ms["prefill_chunk" if grid[2] == 1 else "verify"] += ev["dur"] / 1e3
+    L = server.cfg.num_layers
+    parts = []
+    for name, label in (("prefill_chunk", "prefill chunk (B=1, W=256)"),
+                        ("verify", f"verify tick (B={BATCH_SLOTS}, "
+                                   f"W={SPEC_K + 1})")):
+        n = calls[name]
+        if n == 0 or ms[name] <= 0:
+            parts.append(f"{label}: not measured ({n} such steps, "
+                         f"{seen} window launches with a grid in the trace)")
+            continue
+        parts.append(f"{label}: {ms[name] / n:.4f} ms a step over {n} "
+                     f"({ms[name] / (n * L):.4f} ms a launch, {L} a step)")
+    print("[serve spec] tensor-core window kernel card time "
+          "(torch.profiler): " + "; ".join(parts), flush=True)
+
+
+def serve_spec_fp32(torch):
+    """The SIMT window kernel's path: `llama_tiny` (fp32, d = 16, random
+    weights from the seed) behind `prefix_cache=True,
+    prefill_chunk_tokens=32, speculative=4`, eight prompts of 20-64
+    tokens that repeat their first half (so the n-gram proposer drafts),
+    16 greedy tokens each. Exact launch counts: the SIMT window kernel L
+    per chunk and per verify tick, the tensor-core one never. Returns the
+    launch counts."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    net = get_model("llama_tiny", device="cuda")
+    cfg = net.cfg
+    L, V = cfg.num_layers, cfg.vocab_size
+    server = InferenceServer(net, batch_slots=4, block_size=8, max_len=128,
+                             max_prompt_len=64, prefix_cache=True,
+                             prefill_chunk_tokens=32, speculative=SPEC_K)
+    rs = np.random.RandomState(SEED + 9)
+    prompts = [np.tile(rs.randint(0, V, n // 2), 2)
+               for n in (20, 33, 48, 64, 40, 26, 60, 50)]
+    _build.reset_launch_counts()
+    calls0 = {n: p.calls for n, p in server.programs.items()}
+    reqs = [server.submit(p, max_new_tokens=16, seed=i)
+            for i, p in enumerate(prompts)]
+    server.run()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    calls = {n: p.calls - calls0[n] for n, p in server.programs.items()}
+    for r in reqs:
+        check(r.status == "ok" and len(r.output_tokens) == 16
+              and all(0 <= t < V for t in r.output_tokens),
+              f"serve spec fp32: request {r.id}: status {r.status}, "
+              f"tokens {r.output_tokens}")
+    check(calls["prefill"] == 0 and calls["prefill_chunk"] >= 8
+          and calls["verify"] >= 1,
+          f"serve spec fp32: one-shot prefills, chunks or verify ticks "
+          f"off: {calls}")
+    expect_launches(counts, {
+        "mxtt_rmsnorm": (2 * L + 1) * (calls["prefill_chunk"]
+                                       + calls["decode"] + calls["verify"]),
+        "mxtt_paged_window": L * (calls["prefill_chunk"] + calls["verify"]),
+        "mxtt_paged_decode": L * calls["decode"]}, "serve spec fp32")
+    print(f"[serve spec fp32] llama_tiny {cfg.dtype} d={cfg.head_dim}, 8 "
+          f"requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens, chunk 32, k {SPEC_K}: {calls['prefill_chunk']} prefill "
+          f"chunks, {calls['decode']} decode and {calls['verify']} verify "
+          f"ticks, all ok", flush=True)
     return counts
 
 
@@ -2696,7 +2903,7 @@ def main() -> int:
                        kernel_paged_decode(torch, F, flush)]
             entries += [kernel_decode(torch, F, flush, name)
                         for name in DECODE_KERNELS]
-            entries.append(kernel_paged_window(torch, F, flush))
+            entries += kernel_paged_window(torch, F, flush)
             rms_train, rms_dx = kernel_rmsnorm_train(torch, F, flush)
             attn_train, dq_entry, dkv_entry, fwd_simt, dq_simt, dkv_simt = \
                 kernel_flash_train(torch, F, flush)
@@ -2722,6 +2929,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_oracle(torch, F, net, prompts)
         torch.cuda.empty_cache()
+        counts_spec_fp32 = serve_spec_fp32(torch)
         gen_counts = generate_phase(torch, net, prompts)
         del net
         torch.cuda.empty_cache()
@@ -2739,6 +2947,7 @@ def main() -> int:
     dkv_tpu = "mxnet_tpu/kernels/flash_attention.py:341"
     ce_src = "mxnet_tpu_torch/csrc/fused_ce.cu"
     ln_src = "mxnet_tpu_torch/csrc/layernorm.cu"
+    window_tpu = "mxnet_tpu/kernels/flash_decode.py:613"
     # (symbol, source, TPU kernel's pallas_call, the main-path run whose
     # launch count the line reports)
     meta = {"rmsnorm": ("mxtt_rmsnorm", "mxnet_tpu_torch/csrc/rmsnorm.cu",
@@ -2761,10 +2970,13 @@ def main() -> int:
             "paged_decode_q8": ("mxtt_paged_decode_q8", decode_src,
                                 "mxnet_tpu/kernels/flash_decode.py:376",
                                 counts_q8),
+            "paged_window_tc": ("mxtt_paged_window_tc",
+                                "mxnet_tpu_torch/csrc/"
+                                "window_attention_sm90.cu", window_tpu,
+                                counts_spec),
             "paged_window": ("mxtt_paged_window",
                              "mxnet_tpu_torch/csrc/window_attention.cu",
-                             "mxnet_tpu/kernels/flash_decode.py:613",
-                             counts_spec),
+                             window_tpu, counts_spec_fp32),
             "rmsnorm_dx": ("mxtt_rmsnorm_dx",
                            "mxnet_tpu_torch/csrc/rmsnorm.cu",
                            "mxnet_tpu/kernels/fused_norm.py:114",

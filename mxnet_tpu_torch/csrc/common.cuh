@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions
-// to and from the fp32 working type, warp reductions and the status
-// convention of the C entry points.
+// to and from the fp32 working type, 16-byte chunks, warp and row
+// reductions and the status convention of the C entry points.
 //
 // Every entry point returns 0 on success, a cudaError_t value when the
 // launch was refused, or MXTT_BAD_ARGUMENT for a shape or dtype that no
@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 enum { MXTT_F32 = 0, MXTT_BF16 = 1 };
 enum { MXTT_BAD_ARGUMENT = 100000, MXTT_TENSOR_MAP = 100001 };
@@ -103,6 +105,35 @@ __device__ __forceinline__ uint4 pack_chunk<__nv_bfloat16>(const float* v) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// Unpack one 16-byte chunk of T into fp32 registers (bf16 -> fp32 is
+// exact: the 16 bits become the high half of the word).
+template <typename T>
+__device__ __forceinline__ void unpack(uint4 raw, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(uint4 raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(uint4 raw, float* f) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Whether every pointer given (null ones aside) starts on a 16-byte
+// boundary, as 16-byte loads and TMA need.
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p != nullptr && (uintptr_t)p % 16) return false;
+  return true;
+}
+
 // Where token t's row of kv head kh lives in a paged (N, K, bs, d) pool,
 // in rows of d: through the batch row's own block-table row `btb`
 // (physical block ids in logical order).
@@ -123,6 +154,26 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The sum of every thread's `s` over the threads of one row (a warp, or
+// the whole block of TPR threads); `red` is the block's scratch of one
+// float a warp. The norm kernels' reduction.
+template <int TPR>
+__device__ __forceinline__ float row_sum(float s, float* red) {
+  s = warp_sum(s);
+  if constexpr (TPR == 32) {
+    return s;
+  } else {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();   // every thread has read the previous sum
+    if (lane == 0) red[warp] = s;
+    __syncthreads();
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < TPR / 32; ++w) t += red[w];
+    return t;
+  }
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory (above 48 KB this

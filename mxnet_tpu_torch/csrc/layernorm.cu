@@ -27,8 +27,6 @@
 // 16-byte aligned; neighbouring lanes read neighbouring chunks, so every
 // load is coalesced. Other rows fall back to one element a lane per step,
 // still coalesced.
-#include <initializer_list>
-
 #include "common.cuh"
 
 namespace {
@@ -40,27 +38,6 @@ constexpr int kRowsPerBlock = 4;    // rows of a warp-per-row block
 // values a lane holds: 1024 / 32 in the warp layout, 8192 / 256 in the
 // block layout
 constexpr int kPerLane = 32;
-
-// Unpack one 16-byte chunk of T into fp32 registers (bf16 -> fp32 is
-// exact: the 16 bits become the high half of the word).
-template <typename T>
-__device__ __forceinline__ void unpack(uint4 raw, float* f);
-template <>
-__device__ __forceinline__ void unpack<float>(uint4 raw, float* f) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(uint4 raw, float* f) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 // The row's elements this thread holds: W consecutive elements (one
 // 16-byte chunk, or one element) at each of NCH steps, step i starting
@@ -90,26 +67,6 @@ struct RowSlice {
     }
   }
 };
-
-// The sum of every thread's `s` over the threads of one row (a warp, or
-// the whole block when TPR == kBlockThreads); `red` is the block's
-// scratch of one float a warp.
-template <int TPR>
-__device__ __forceinline__ float row_sum(float s, float* red) {
-  s = warp_sum(s);
-  if constexpr (TPR == 32) {
-    return s;
-  } else {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();   // every thread has read the previous sum
-    if (lane == 0) red[warp] = s;
-    __syncthreads();
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < TPR / 32; ++w) t += red[w];
-    return t;
-  }
-}
 
 // (row index, thread index within the row) of this thread
 template <int TPR>
@@ -229,12 +186,6 @@ __global__ void __launch_bounds__(TPR == 32 ? 32 * kRowsPerBlock : TPR)
     else
       *reinterpret_cast<uint4*>(dxr + e) = pack_chunk<T>(o);
   }
-}
-
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (p != nullptr && (uintptr_t)p % 16) return false;
-  return true;
 }
 
 // Launch `Kernel<T, W, TPR>` over `rows` rows: a warp a row up to

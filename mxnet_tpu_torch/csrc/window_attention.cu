@@ -32,9 +32,11 @@
 // own table row) while the current tile computes, as the decode walk does.
 // Each row keeps its own online softmax in registers and masks keys at its
 // own valid length. Rows past R (the ragged last tile) load zeros and are
-// not stored. Scores and products run on the fp32 SIMT units; tensor cores
-// (wgmma) and TMA staging are later work. At the chunk shape the grid is
-// 16 x 8 = 128 blocks; a verify tick (R = 20) fills a third of its tiles.
+// not stored. Scores and products run on the fp32 SIMT units. At the
+// chunk shape the grid is 16 x 8 = 128 blocks; a verify tick (R = 20)
+// fills a third of its tiles. This kernel keeps float32, d = 16 and the
+// GQA factors and block sizes that window_attention_sm90.cu (the
+// tensor-core route of bf16 at d = 64 and 128) does not take.
 #include "common.cuh"
 
 namespace {

@@ -1,7 +1,6 @@
 """Decode attention over the port's four KV caches (`csrc/decode_attention.cu`,
-one template) and window attention over the page pool
-(`csrc/window_attention.cu`): the CUDA kernels and their plain PyTorch
-versions.
+one template) and window attention over the page pool: the CUDA kernels
+and their plain PyTorch versions.
 
 Counterpart of `mxnet_tpu/kernels/flash_decode.py`:
 
@@ -27,15 +26,22 @@ Window attention (chunked prefill, speculative verify) takes q
 (B, W, H, d) and valid_lens (B, W): each window row attends the cache
 positions below its own length, so in-window causality needs no mask
 and row w equals a single-position call at valid length valid_lens[:, w]
-(flash_decode.py:480-490 of the JAX package). The int8 window,
+(flash_decode.py:480-490 of the JAX package). Two window kernels, the
+route decided by the operands alone: bf16 at d in TC_HEAD_DIMS, H / K in
+TC_REPS and block size in TC_BLOCK_SIZES takes the tensor-core kernel
+(`csrc/window_attention_sm90.cu`: wgmma, the pool's pages staged by
+TMA); anything else (float32, d = 16, another GQA factor or block size)
+takes the SIMT kernel (`csrc/window_attention.cu`, d in HEAD_DIMS) or,
+where neither takes it, raises. The int8 window,
 `flash_decode_paged_window_quantized`, gathers and dequantizes like the
 reference (which has no in-kernel int8 window) and is plain PyTorch on
 every device.
 
 A CPU tensor takes the plain version (differentiable, as the JAX
-functions are); a CUDA tensor launches the kernel (d in HEAD_DIMS, q
-float32 or bfloat16, any S) or raises, also where autograd would need a
-gradient through it: the decode kernels have no backward.
+functions are); a CUDA tensor launches the kernel of its route (d in
+HEAD_DIMS, or TC_HEAD_DIMS on the tensor-core window route; q float32 or
+bfloat16; any S) or raises, also where autograd would need a gradient
+through it: the decode and window kernels have no backward.
 """
 from __future__ import annotations
 
@@ -74,8 +80,18 @@ _PAGED_Q8 = _build.CudaKernel("mxtt_paged_decode_q8",
 _WINDOW = _build.CudaKernel("mxtt_paged_window",
                             [_P] * 6 + [_I] * 7 + [_F, _I, _P])
 
+#: out, q, k, v, block_tables, valid_lens, B, W, H, K, d, bs, nb, N (the
+#: pool's block count), scale, dtype, stream
+_WINDOW_TC = _build.CudaKernel("mxtt_paged_window_tc",
+                               [_P] * 6 + [_I] * 8 + [_F, _I, _P])
+
 #: the head dims of the supported configs (llama_tiny, Llama-3-8B)
 HEAD_DIMS = (16, 128)
+#: what the tensor-core window kernel takes, in bf16: head dims, query
+#: heads per kv head, page sizes
+TC_HEAD_DIMS = (64, 128)
+TC_REPS = (1, 2, 4, 8)
+TC_BLOCK_SIZES = (8, 16, 32, 64)
 #: the decode kernels' threads own rep * d <= 1024 outputs of one kv head
 MAX_REP_DIM = 1024
 
@@ -186,13 +202,14 @@ def reference_paged_window_attention(q, k_pages, v_pages, block_tables,
 
 # -- kernel wrappers ---------------------------------------------------------
 
-def _check(q, data, scales, valid_len, block_tables=None, window=False):
+def _check(q, data, scales, valid_len, block_tables=None, window=False,
+           head_dims=HEAD_DIMS):
     """Raise unless the operands are what the kernels take: q (B, H, d),
     or (B, W, H, d) with `window`, float32/bfloat16; data (two 4-D caches,
     in q's dtype or int8 when `scales` are given, 16-byte aligned) of one
     shape (B|N, K, S|bs, d); scales fp32 (..., 1) of the same leading
     shape; int32 valid_len (B,), or (B, W) with `window`, and
-    block_tables (B, nb). Returns (B, H, K, d, S|bs), or
+    block_tables (B, nb); d in `head_dims`. Returns (B, H, K, d, S|bs), or
     (B, W, H, K, d, bs) with `window`."""
     dev = q.device
     # the window kernel loads q rows 16 bytes at a time
@@ -231,10 +248,19 @@ def _check(q, data, scales, valid_len, block_tables=None, window=False):
     if any(t.shape[0] != B for t in rows):
         raise ValueError("valid_len and block_tables need one row per "
                          "batch row")
-    if d not in HEAD_DIMS or (not window and (H // K) * d > MAX_REP_DIM):
-        raise ValueError(f"head dim {d} (in {HEAD_DIMS}) with {H // K} "
+    if d not in head_dims or (not window and (H // K) * d > MAX_REP_DIM):
+        raise ValueError(f"head dim {d} (in {head_dims}) with {H // K} "
                          f"query heads per kv head exceeds the kernel")
     return lead + (H, K, d, S)
+
+
+def _window_tensor_cores(q, k_pages):
+    """Whether a window call goes to the tensor-core kernel: bf16, and a
+    head dim, GQA factor and page size it takes (shapes checked)."""
+    H, d = q.shape[-2], q.shape[-1]
+    K, bs = k_pages.shape[1], k_pages.shape[2]
+    return q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
+        and H // K in TC_REPS and bs in TC_BLOCK_SIZES
 
 
 def _launch(kernel, q, operands, sizes, scale):
@@ -310,9 +336,21 @@ def flash_decode_paged_window(q, k_pages, v_pages, block_tables, valid_lens,
         return reference_paged_window_attention(
             q, k_pages, v_pages, block_tables, valid_lens, scale)
     sizes = _check(q, (k_pages, v_pages), (), valid_lens, block_tables,
-                   window=True)
-    return _launch(_WINDOW, q, (k_pages, v_pages, block_tables, valid_lens),
-                   sizes + (block_tables.shape[1],), scale)
+                   window=True, head_dims=HEAD_DIMS + TC_HEAD_DIMS)
+    operands = (k_pages, v_pages, block_tables, valid_lens)
+    nb = block_tables.shape[1]
+    if _window_tensor_cores(q, k_pages):
+        N, K, bs = k_pages.shape[:3]
+        if N * K * bs >= 2 ** 31:
+            raise ValueError(f"a pool of {N} x {K} x {bs} rows exceeds the "
+                             f"tensor-core kernel's 2^31")
+        return _launch(_WINDOW_TC, q, operands, sizes + (nb, N), scale)
+    if sizes[4] not in HEAD_DIMS:
+        raise ValueError(f"head dim {sizes[4]} takes the tensor-core window "
+                         f"kernel only (bf16, H/K in {TC_REPS}, block size in "
+                         f"{TC_BLOCK_SIZES}); the SIMT kernel takes "
+                         f"{HEAD_DIMS}")
+    return _launch(_WINDOW, q, operands, sizes + (nb,), scale)
 
 
 def flash_decode_paged_window_quantized(q, k8_pages, ks_pages, v8_pages,

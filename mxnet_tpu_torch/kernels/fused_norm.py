@@ -20,7 +20,8 @@ and shifts.
 `rmsnorm` and `layernorm` go through their autograd Functions when
 autograd needs a gradient and straight to the forward (no statistics
 written) otherwise. A CPU tensor takes the plain versions; a CUDA tensor
-launches the kernel (LayerNorm rows up to LN_MAX_DIM wide) or raises.
+launches the kernel (rows up to RMS_MAX_DIM and LN_MAX_DIM wide) or
+raises.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ __all__ = ["rmsnorm", "rmsnorm_ref", "rmsnorm_fwd", "rmsnorm_fwd_ref",
            "rmsnorm_dx", "rmsnorm_dx_ref", "RMSNormFunction", "layernorm",
            "layernorm_ref", "layernorm_fwd", "layernorm_fwd_ref",
            "layernorm_dx", "layernorm_dx_ref", "LayerNormFunction",
-           "LN_MAX_DIM"]
+           "RMS_MAX_DIM", "LN_MAX_DIM"]
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -49,9 +50,10 @@ _LN_FWD = _build.CudaKernel("mxtt_layernorm",
 #: dx, x, gamma, mu, rstd, dy, rows, dim, dtype, stream
 _LN_DX = _build.CudaKernel("mxtt_layernorm_dx", [_P] * 6 + [_I64, _I, _I, _P])
 
-#: the widest LayerNorm row the kernels take (kMaxDim in layernorm.cu:
-#: 256 threads of a block hold 32 values each)
-LN_MAX_DIM = 8192
+#: the widest RMSNorm forward and LayerNorm rows the kernels take (kMaxDim
+#: in rmsnorm.cu and layernorm.cu: 256 threads of a block hold 32 values
+#: each)
+RMS_MAX_DIM = LN_MAX_DIM = 8192
 
 
 # -- plain versions -----------------------------------------------------------
@@ -101,6 +103,8 @@ def rmsnorm_fwd(x: torch.Tensor, gamma: torch.Tensor, eps: float,
         out, rrms = rmsnorm_fwd_ref(x, gamma, eps)
         return out, rrms if with_rrms else None
     rows, D = _check_rows(x, gamma, x.device)
+    if D > RMS_MAX_DIM:
+        raise ValueError(f"rows of {D} exceed the kernel's {RMS_MAX_DIM}")
     out = torch.empty_like(x)
     rrms = torch.empty(rows, dtype=torch.float32, device=x.device) \
         if with_rrms else None

@@ -270,6 +270,76 @@ def test_attention_routes_by_dtype_and_head_dim(dtype, d, fwd, dq, dkv,
     assert stub_launch[-1] == fwd
 
 
+@pytest.mark.parametrize("dtype,d,rep,bs,kernel", [
+    (torch.bfloat16, 128, 4, 16, "mxtt_paged_window_tc"),
+    (torch.bfloat16, 64, 1, 8, "mxtt_paged_window_tc"),
+    (torch.bfloat16, 128, 8, 64, "mxtt_paged_window_tc"),
+    (torch.bfloat16, 128, 2, 32, "mxtt_paged_window_tc"),
+    (torch.bfloat16, 16, 4, 16, "mxtt_paged_window"),
+    (torch.bfloat16, 128, 3, 16, "mxtt_paged_window"),
+    (torch.bfloat16, 128, 16, 16, "mxtt_paged_window"),
+    (torch.bfloat16, 128, 4, 4, "mxtt_paged_window"),
+    (torch.bfloat16, 128, 4, 128, "mxtt_paged_window"),
+    (torch.float32, 128, 4, 16, "mxtt_paged_window"),
+    (torch.float32, 16, 2, 8, "mxtt_paged_window"),
+    (torch.bfloat16, 64, 3, 16, None),
+    (torch.float32, 64, 4, 16, None)])
+def test_window_routes_by_dtype_head_dim_rep_and_block_size(
+        dtype, d, rep, bs, kernel, stub_launch):
+    """bf16 at d in {64, 128}, H/K in {1, 2, 4, 8} and block size in {8,
+    16, 32, 64} takes the tensor-core window kernel; every other call the
+    SIMT one, which takes d in {16, 128}; what neither takes raises before
+    any launch. The route follows from the operands alone."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    B, W, K = 2, 5, 2
+    q = torch.empty(B, W, K * rep, d, dtype=dtype, device=META)
+    pool = torch.empty(9, K, bs, d, dtype=dtype, device=META)
+    bt = torch.empty(B, 4, dtype=torch.int32, device=META)
+    vls = torch.empty(B, W, dtype=torch.int32, device=META)
+    if kernel is None:
+        with pytest.raises(ValueError, match="head dim 64"):
+            fd.flash_decode_paged_window(q, pool, pool, bt, vls)
+        assert stub_launch == []
+        return
+    out = fd.flash_decode_paged_window(q, pool, pool, bt, vls)
+    assert stub_launch == [kernel] and out.shape == q.shape
+    assert _build.launch_counts()[kernel] == 1
+
+
+@pytest.mark.parametrize("bad", ["q_misaligned", "k_misaligned",
+                                 "v_strided", "table_dtype", "table_rows",
+                                 "lengths_shape", "pool_too_large"])
+def test_window_tensor_core_route_raises_before_any_launch(bad,
+                                                           stub_launch):
+    """A call on the tensor-core window route with an operand off a
+    16-byte boundary, a non-contiguous pool, a bad table or lengths, or a
+    pool past the kernel's 2^31 rows raises before any launch: no detour
+    to the SIMT kernel or the plain version."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    bf = dict(device=META, dtype=torch.bfloat16)
+    B, W, H, K, d, bs = 2, 5, 8, 2, 128, 16
+
+    def misaligned(shape):      # one element past a 16-byte boundary
+        n = int(np.prod(shape))
+        return torch.empty(n + 1, **bf)[1:].view(shape)
+    q = misaligned((B, W, H, d)) if bad == "q_misaligned" \
+        else torch.empty(B, W, H, d, **bf)
+    N = 2 ** 31 // (K * bs) if bad == "pool_too_large" else 9
+    k = misaligned((N, K, bs, d)) if bad == "k_misaligned" \
+        else torch.empty(N, K, bs, d, **bf)
+    v = torch.empty(N, K, d, bs, **bf).transpose(2, 3) \
+        if bad == "v_strided" else torch.empty(N, K, bs, d, **bf)
+    bt = torch.empty(B + (bad == "table_rows"), 4, device=META,
+                     dtype=torch.int64 if bad == "table_dtype"
+                     else torch.int32)
+    vls = torch.empty((B,) if bad == "lengths_shape" else (B, W),
+                      dtype=torch.int32, device=META)
+    with pytest.raises((ValueError, TypeError)):
+        fd.flash_decode_paged_window(q, k, v, bt, vls)
+    assert stub_launch == []
+
+
 @pytest.mark.parametrize("bad", ["q_misaligned", "k_strided",
                                  "dout_misaligned", "lse_strided",
                                  "dq_dout_misaligned"])
@@ -303,7 +373,8 @@ def test_tensor_core_route_raises_before_any_launch(bad, stub_launch):
     assert stub_launch == []
 
 
-@pytest.mark.parametrize("bad", ["rms_gamma_dtype", "rms_dx_rrms_rows",
+@pytest.mark.parametrize("bad", ["rms_gamma_dtype", "rms_too_wide",
+                                 "rms_dx_rrms_rows",
                                  "ln_gamma_dtype", "ln_strided_x",
                                  "fwd_lse_head_dim", "dq_lse_shape",
                                  "dkv_delta_dtype", "dkv_strided_dout",
@@ -344,6 +415,10 @@ def test_training_wrappers_raise_on_the_card_and_never_fall_back(
     with pytest.raises((ValueError, TypeError)):
         if bad == "rms_gamma_dtype":
             fused_norm.rmsnorm_fwd(x, g32.bfloat16(), 1e-5)
+        elif bad == "rms_too_wide":
+            w = fused_norm.RMS_MAX_DIM + 8
+            fused_norm.rmsnorm_fwd(torch.empty(2, w, **f32),
+                                   torch.empty(w, **f32), 1e-5)
         elif bad == "rms_dx_rrms_rows":
             fused_norm.rmsnorm_dx(x, g32, torch.empty(5, **f32), x)
         elif bad == "ln_gamma_dtype":
