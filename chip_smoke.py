@@ -17,7 +17,10 @@ exits non-zero and prints no result:
    outside it; kernel, plain and library (yardstick only: the port never
    calls it) times with a cold L2, and the least time the card could
    take for the same work. The int8 decode kernels read caches quantized
-   from rows whose magnitudes vary by token. RMSNorm adds odd widths,
+   from rows whose magnitudes vary by token. The contiguous decode
+   kernels (a split walk and a merge) add valid lengths on the split's
+   range bounds with an empty row, which must be exactly zero, and two
+   launches equal bit for bit. RMSNorm adds odd widths,
    a row start off a 16-byte boundary and 20000 narrow rows. The window
    kernels: the tensor-core one (bf16) at a prefill chunk (B=1, W=256),
    a verify tick (B=8, W=5) and ragged windows, valid_lens off by one
@@ -75,7 +78,9 @@ exits non-zero and prints no result:
    int8 cache: exact launch counts (contiguous decode 32 per step), the
    same first token in every row, and 32 teacher-forced steps of both
    caches within max(2%, twice the bf16 path's own deviation from an
-   fp32 copy of the net) relative logit difference; then `generate_beam` on
+   fp32 copy of the net) relative logit difference; the contiguous
+   decode kernel's card time in one more decode step of each cache
+   (torch.profiler, 32 launches); then `generate_beam` on
    two prompts (beam_size 4, 8 new tokens). Tokens/s of each run.
 5. train: with the serving net freed, Llama-3-8B at full width cut to 4
    layers (1.13 B parameters) behind `FusedTrainStep` with AdamW (lr
@@ -112,6 +117,7 @@ exits non-zero and prints no result:
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -575,6 +581,21 @@ def cache_rows(torch, gen, shape, dtype, spread):
     return (torch.randn(*shape, generator=gen, device="cuda") * mag).to(dtype)
 
 
+def decode_tol(torch, q, k_cache, v_cache, valid_len, ref, scale):
+    """Element-wise tolerance of a decode kernel's output against its
+    plain version `ref` (fp32 throughout) on the same inputs, over the
+    (B, K, S, d) caches it attends (gathered, dequantized): both differ
+    by fp32 noise of the row's sum of p * |v| and, in bf16, each rounds
+    its output once (one bf16 step of |ref|). The contiguous kernels'
+    split walk only reorders the fp32 sums."""
+    _, pv_abs = cached_attention(torch, q[:, None], k_cache, v_cache,
+                                 valid_len[:, None], scale)
+    tol = FP32_NOISE * pv_abs[:, 0]
+    if ref.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * ref.float().abs()
+    return tol
+
+
 def kernel_decode(torch, F, flush, name):
     """One of the slice-2 decode kernels against its plain version: the
     contiguous (B, K, S, d) cache at generate()'s shapes (8 prompts of up
@@ -582,7 +603,10 @@ def kernel_decode(torch, F, flush, name):
     max_len 2048, shuffled tables). int8 caches come from quantize_kv of
     bf16 rows whose magnitudes vary by token (k over e^0.5, v over e^1.5),
     so the per-token scales, which fold into the scores (k) and into p
-    before P.V (v) but not into the running sum, differ by orders."""
+    before P.V (v) but not into the running sum, differ by orders. The
+    contiguous kernels add an edges case at S = 544 whose valid lengths
+    sit on the split walk's range bounds, an empty row among them, and
+    two launches equal bit for bit at the main shape."""
     from mxnet_tpu_torch.kernels import flash_decode as fd
     paged, q8 = DECODE_KERNELS[name]
     kern, plain = {
@@ -605,6 +629,8 @@ def kernel_decode(torch, F, flush, name):
         main_vl = rs.randint(33, S + 1, BATCH_SLOTS)
         cases = (("main", 32, 8, 128, None, S, main_vl, bf16),
                  ("ragged", 32, 8, 128, None, 333, [1, 200, 333], bf16),
+                 ("edges", 32, 8, 128, None, S,
+                  [0, 1, fd.SPLIT, fd.SPLIT + 1, S], bf16),
                  ("tiny fp32", 4, 2, 16, None, 77, [1, 13, 77], f32))
     entry = None
     for label, H, K, d, bs, S, vls, dtype in cases:
@@ -637,16 +663,16 @@ def kernel_decode(torch, F, flush, name):
         args = ops + tables + (vl_t, scale)
         out, ref = kern(q, *args), plain(q, *args)
         torch.cuda.synchronize()
-        # the plain version dequantizes to fp32 and works in fp32
-        # throughout: both round the output once (one bf16 step of |ref|)
-        # or differ by fp32 noise of the row's sum of p * |v| (v
-        # dequantized)
-        _, pv_abs = cached_attention(torch, q[:, None], kd, vd,
-                                     vl_t[:, None], scale)
-        tol = FP32_NOISE * pv_abs[:, 0]
-        if dtype == bf16:
-            tol = tol + BF16_STEP * ref.float().abs()
+        # a row with no key: the plain version's softmax is NaN there (as
+        # the JAX reference's); the kernels write zeros, as the Pallas
+        # kernels' safe_l does, held to a tolerance of 0
+        ref = torch.where((vl_t > 0)[:, None, None], ref, 0)
+        tol = decode_tol(torch, q, kd, vd, vl_t, ref, scale)
         err, text = held(torch, f"{name} {label}", out, ref, tol)
+        if label == "edges":
+            check(bool((out[0] == 0).all()),
+                  f"{name} edges: the valid_len = 0 row is not zero")
+            text += "; the valid_len = 0 row exactly zero"
         line = f"[kernels] {name} {label} B={B} H={H} K={K} d={d} " \
                f"{f'bs={bs} max_len' if paged else 'S'}={S} " \
                f"valid_len={list(map(int, vls))} {dtype}: {text}"
@@ -659,6 +685,10 @@ def kernel_decode(torch, F, flush, name):
                                         (vl_t + dv)[:, None], scale)[0][:, 0]
                        .to(dtype), ref, tol)
                 for wrong, dv in (("valid_len-1", -1), ("valid_len+1", 1)))
+            if not paged:
+                check(torch.equal(out, kern(q, *args)),
+                      f"{name}: two launches differ")
+                line += "; two launches equal bit for bit"
             ms = cold_ms(torch, lambda: kern(q, *args), flush)
             plain_ms = cold_ms(torch, lambda: plain(q, *args), flush)
             # yardstick: SDPA over the (gathered, dequantized) cache in
@@ -1638,11 +1668,35 @@ def logits_vs_plain(torch, F, net, kern, seq, label):
     return truth, tol
 
 
+def release(torch):
+    """Free what the last phase left: reference cycles (servers, programs
+    and nets refer to each other) are collected, then the allocator's
+    cache is returned, so the next phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def device_ms(prof):
+    """{kernel name: (card ms, launches)} over a torch.profiler run's
+    device events, by self time (`self_cuda_time_total` in older torch)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        ms, n = out.get(ev.key, (0.0, 0))
+        out[ev.key] = (ms + us / 1e3, n + ev.count)
+    return out
+
+
 def tick_breakdown(torch, server, prompts):
     """Where a steady decode tick's time goes: wall time per tick with 8
     running requests (host clock, synchronised), and the card's busy time
     per tick by kernel family from torch.profiler over the same ticks."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(BATCH_SLOTS):
@@ -1663,20 +1717,15 @@ def tick_breakdown(torch, server, prompts):
         torch.cuda.synchronize()
     server.run()
     fam = {"gemm": 0.0, "paged_decode": 0.0, "rmsnorm": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        name = ev.key.lower()
+    for name, (ms, _) in device_ms(prof).items():
+        name = name.lower()
         key = next((k for part, k in (("decode_attention", "paged_decode"),
                                       ("rmsnorm", "rmsnorm"))
                     if part in name), None)
         if key is None:
             key = "gemm" if any(w in name for w in (
                 "gemm", "nvjet", "cutlass", "xmma")) else "other"
-        fam[key] += us / 1e3 / n
+        fam[key] += ms / n
     busy = sum(fam.values())
     if busy > 0:
         parts = ", ".join(f"{k} {v:.3f}" for k, v in fam.items())
@@ -2298,6 +2347,55 @@ def max_rel_dev(ref, other):
                for a, b in zip(ref, other))
 
 
+def decode_card_ms(torch, net, ids, valid_len, kv, sym, max_len):
+    """The contiguous decode kernel's card time in one decode step of
+    generate()'s programs with a `kv` cache (L launches, each its split
+    walk and its merge), from torch.profiler: a prefill and a step
+    outside the profile, then one profiled step, whose launches of `sym`
+    must number L. Returns the line to print."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models.llama_infer import _params_tree
+    from mxnet_tpu_torch.serving.executables import decoder_programs
+
+    L = net.cfg.num_layers
+    dec = decoder_programs(net, max_len, kv)
+    params = _params_tree(net)
+    tok = torch.zeros(ids.shape[0], dtype=torch.long, device="cuda")
+    pos = valid_len.long()
+    cache, _ = dec["prefill"](params, ids, valid_len)
+    cache, _ = dec["step"](params, cache, pos, tok)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dec["step"](params, cache, pos + 1, tok)
+        torch.cuda.synchronize()
+    launches = _build.launch_counts()[sym]
+    check(launches == L, f"decode step {kv}: {sym} launched {launches} "
+                         f"times, expected {L}")
+    # generate() runs no paged cache: every decode_attention_kernel here
+    # is the split walk (its Split = true instantiation)
+    ms = {"decode_attention_kernel": 0.0, "decode_merge_kernel": 0.0}
+    seen = dict.fromkeys(ms, 0)
+    for name, (t, n) in device_ms(prof).items():
+        for k in ms:
+            if k in name:
+                ms[k] += t
+                seen[k] += n
+    if min(seen.values()) == 0:
+        return (f"{sym} ({kv} cache): card time not measured ({launches} "
+                f"launches, kernels seen by the profiler: {seen})")
+    total = sum(ms.values())
+    return (f"{sym} ({kv} cache): {total:.4f} ms of card time a decode "
+            f"step over {launches} launches ({total / launches:.4f} ms a "
+            f"launch: split walk {ms['decode_attention_kernel']:.4f}, merge "
+            f"{ms['decode_merge_kernel']:.4f} ms a step; "
+            f"{seen['decode_attention_kernel']} + "
+            f"{seen['decode_merge_kernel']} kernels profiled)")
+
+
 def generate_phase(torch, net, prompts):
     """Contiguous-cache generate() on the 8B net: 8 prompts right-padded
     to 512 with ragged valid_len, 32 greedy tokens with a bf16 and with an
@@ -2349,6 +2447,12 @@ def generate_phase(torch, net, prompts):
           f"and int8 caches; {100 * agree:.1f}% of all generated tokens "
           f"equal (free-running: one near-tie flips the rest of a row)",
           flush=True)
+    ids_t, vl_t = torch.from_numpy(ids).cuda(), torch.from_numpy(vl).cuda()
+    for kv, sym in (("model", "mxtt_contig_decode"),
+                    ("int8", "mxtt_contig_decode_q8")):
+        print("[generate] torch.profiler, one more decode step: "
+              + decode_card_ms(torch, net, ids_t, vl_t, kv, sym, T + new),
+              flush=True)
 
     # teacher forcing: the bf16 cache, the int8 cache, and an fp32 copy
     # of the net with an fp32 cache (exact arithmetic, to measure the
@@ -2358,7 +2462,6 @@ def generate_phase(torch, net, prompts):
         for p, p32 in zip(net.parameters(), net32.parameters()):
             p32.copy_(p)
     toks = torch.from_numpy(outs["model"][:, T:]).cuda().long()
-    ids_t, vl_t = torch.from_numpy(ids).cuda(), torch.from_numpy(vl).cuda()
     lg = {name: teacher_forced(n, kv, ids_t, vl_t, toks)
           for name, (n, kv) in (("bf16", (net, "model")),
                                 ("int8", (net, "int8")),
@@ -2559,7 +2662,6 @@ def train_breakdown(torch, step, args, wall, label="train"):
     forward and backward (`loss_and_grads(*args)`) split by kernel, the
     update (`apply_update`) as the optimizer's; the card's idle share of
     `wall`, the median step's wall time (host clock, no profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # (part of the CUDA kernel's name, family)
@@ -2581,13 +2683,8 @@ def train_breakdown(torch, step, args, wall, label="train"):
             out = fn()
             torch.cuda.synchronize()
         fam = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CPU:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            name = ev.key.lower()
+        for name, (ms, _) in device_ms(prof).items():
+            name = name.lower()
             key = "optimizer (elementwise)"
             if split:
                 key = next((k for part, k in fam_of if part in name), None)
@@ -2595,7 +2692,7 @@ def train_breakdown(torch, step, args, wall, label="train"):
                     key = "cuBLAS" if any(w in name for w in (
                         "gemm", "nvjet", "cutlass", "xmma")) \
                         else "elementwise and copies"
-            fam[key] = fam.get(key, 0.0) + us / 1e3
+            fam[key] = fam.get(key, 0.0) + ms
         return out, fam
 
     (_, grads), fam = busy(lambda: step.loss_and_grads(*args), True)
@@ -2635,6 +2732,7 @@ def train_phase(torch, F, card):
     from mxnet_tpu_torch.parallel import FusedTrainStep
 
     L, B, T = TRAIN_LAYERS, TRAIN_B, TRAIN_T
+    held = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     net = get_model("llama_3_8b", device="cuda", num_layers=L)
     cfg = net.cfg
@@ -2693,7 +2791,8 @@ def train_phase(torch, F, card):
           f"{', '.join(f'{v:.5f}' for v in losses)}; step wall "
           f"{', '.join(f'{w:.1f}' for w in walls)} ms; train tokens/s "
           f"over steps 2-5: {tps:.1f} ({card}); peak device memory "
-          f"{peak:.2f} GB", flush=True)
+          f"{peak:.2f} GB ({held:.2f} GB held when the phase began)",
+          flush=True)
     train_breakdown(torch, step, (x, y), float(np.median(walls[1:])))
     del step, net
     torch.cuda.empty_cache()
@@ -2931,10 +3030,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts_spec_fp32 = serve_spec_fp32(torch)
         gen_counts = generate_phase(torch, net, prompts)
-        del net
-        torch.cuda.empty_cache()
+        del net, prompts
+        release(torch)
         train_counts, fp32_counts = train_phase(torch, F, card)
+        release(torch)
         bert_counts = bert_phase(torch, F, card)
+        release(torch)
         transformer_phase(torch, F, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

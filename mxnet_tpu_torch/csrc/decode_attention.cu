@@ -29,22 +29,34 @@
 // (plus two fp32 scales for int8) are read once per kv head for
 // rep = H/K query rows, 4 * rep * d operations against 4 * d bytes in
 // bf16 (2 * d + 8 in int8): about rep operations per byte (2 * rep for
-// int8), far below the card's 295.
+// int8), far below the card's 295. Tensor cores would not help: at
+// about rep operations per byte the work is loads and their latency,
+// and the lever is how many blocks have their loads in flight at once.
 //
-// Design: one block per (kv head, batch row) walks the tokens below
-// valid_len in tiles of 64, staging K and V in shared memory as fp32.
-// With one block per SM there are no other warps to hide memory latency
-// behind, so each thread issues all its 16-byte loads of the NEXT tile
-// (and, for int8, one token's k or v scale) into registers before
-// computing the current one: one memory round trip per tile, overlapped
-// with the math. The rep query rows of the kv head share every tile, so
-// the cache is read once per kv head, not once per query head. For int8
+// The walk: tokens in tiles of 64, K and V staged in shared memory as
+// fp32. Each thread issues all its 16-byte loads of the NEXT tile (and,
+// for int8, one token's k or v scale) into registers before computing
+// the current one: one memory round trip per tile, overlapped with the
+// math. The rep query rows of the kv head share every tile, so the
+// cache is read once per kv head, not once per query head. For int8
 // the scales fold in as flash_decode.py:729-740 does: the k scale
 // multiplies the score after the dot, s = (q . k8) * ks, and the v
 // scale multiplies p before P.V, acc += (p * vs) * v8, while the running
-// sum l adds the unscaled p. With B * K = 64 blocks at the Llama-3-8B
-// shape the 132 SMs are not filled: splitting the token walk across
-// blocks (split-K) is later work.
+// sum l adds the unscaled p.
+//
+// Contiguous caches split the walk across blocks (split-K): one block
+// per (token range of SPLIT, kv head, batch row) walks its range and
+// writes its unnormalised partial softmax (acc, running max m, sum l,
+// fp32) to a workspace the wrapper allocates from S alone; a second,
+// small kernel, one thread an output, merges the partials of the ranges
+// below valid_len in ascending order, out = sum_s w_s acc_s / sum_s w_s
+// l_s with w_s = exp(m_s - max m). At generate()'s Llama-3-8B shape
+// (B * K = 64, S = 544) one block per (kv head, batch row) left half of
+// the 132 SMs idle and walked up to 9 tiles in series; the split puts
+// about 350 blocks of one tile each in flight. Paged caches keep the
+// single pass, one block per (kv head, batch row) walking every tile
+// below valid_len. Both are one kernel template, decode_attention_kernel,
+// whose Split parameter picks the token range and what it writes.
 #include <type_traits>
 
 #include "common.cuh"
@@ -56,6 +68,10 @@ constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_OUT = 8;        // outputs a thread owns: rep * D <= 1024
 static_assert(NTHREADS == 2 * TT, "each thread stages one k or v scale");
+// tokens a block of the contiguous caches' split walk owns: whole tiles
+// (64 measured against 128 and 256 by tools/decode_split.py)
+constexpr int SPLIT = 64;
+static_assert(SPLIT % TT == 0, "a split is whole tiles");
 
 struct Args {
   void* out;
@@ -70,6 +86,7 @@ struct Args {
   int S;                // contiguous: cache length; paged: block size
   int nb;               // paged: table width; contiguous: 1
   float scale;
+  float* ws;            // split walk: (B, K, ns, rep, D + 2) partials
 };
 
 // Where token t's row of (batch row b, kv head kh) lives, in rows of d:
@@ -134,13 +151,26 @@ __device__ __forceinline__ void load_tile(uint4 (&kreg)[NCH],
   }
 }
 
-template <typename T, typename C, typename Rows, int D>
+// One walk, two epilogues. Split false (the paged caches' single pass):
+// block (kh, b) walks every token below valid_len and writes out = acc /
+// l in q's dtype, zeros where l = 0. Split true (pass 1 of the
+// contiguous caches' split walk): block (split, kh, b) walks tokens
+// [split * SPLIT, min((split + 1) * SPLIT, vl)) and writes its
+// unnormalised partial state to the workspace rows
+// ((b * K + kh) * ns + split) * rep + r of D + 2 floats: acc (D), the
+// running max m, the running sum l; a block whose range starts at or
+// past vl writes nothing. One kernel body rather than a shared device
+// function: the function's boundary cost the paged int8 kernel its
+// uniform-register address arithmetic and read-only loads, and time.
+template <typename T, typename C, typename Rows, int D, bool Split>
 __global__ void __launch_bounds__(NTHREADS)
-    decode_attention_kernel(const Args a) {
+    decode_attention_kernel(const Args a, int ns) {
   constexpr bool Q8 = std::is_same<C, int8_t>::value;
   constexpr int KST = D + 4;       // padded K rows, as in flash_prefill.cu
   extern __shared__ __align__(16) float smem[];
-  const int kh = blockIdx.x, b = blockIdx.y, rep = a.H / a.K;
+  const int kh = Split ? blockIdx.y : blockIdx.x;
+  const int b = Split ? blockIdx.z : blockIdx.y;
+  const int rep = a.H / a.K;
   float* Qs = smem;                // rep x D, pre-scaled
   float* Ks = Qs + rep * D;        // TT x KST
   float* Vs = Ks + TT * KST;       // TT x D
@@ -157,6 +187,9 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Rows rows = rows_of<Rows>(a, b, kh);
   const int vl = max(0, min(a.valid_len[b], capacity(rows, a)));
+  const int lo = Split ? blockIdx.x * SPLIT : 0;
+  if (Split && lo >= vl) return;  // uniform: no barrier half-reached
+  const int hi = Split ? min(lo + SPLIT, vl) : vl;
   // the rep query rows of kv head kh are contiguous in q and out
   const int64_t qoff = ((int64_t)b * a.H + (int64_t)kh * rep) * D;
   const int nout = rep * D;
@@ -177,11 +210,11 @@ __global__ void __launch_bounds__(NTHREADS)
   constexpr int NCH = (TT * CPR + NTHREADS - 1) / NTHREADS;  // a thread
   uint4 kreg[NCH], vreg[NCH];
   float sreg = 0.f;
-  if (vl > 0)
-    load_tile<C, D, NCH, Q8>(kreg, vreg, sreg, kp, vp, a.ks, a.vs, rows, 0,
-                             vl);
+  if (lo < hi)
+    load_tile<C, D, NCH, Q8>(kreg, vreg, sreg, kp, vp, a.ks, a.vs, rows, lo,
+                             hi);
 
-  for (int t0 = 0; t0 < vl; t0 += TT) {
+  for (int t0 = lo; t0 < hi; t0 += TT) {
     __syncthreads();  // Q staged, previous tile consumed
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
@@ -194,9 +227,9 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     if constexpr (Q8) (tid < TT ? kss : vss)[tid % TT] = sreg;
     __syncthreads();
-    if (t0 + TT < vl)
+    if (t0 + TT < hi)
       load_tile<C, D, NCH, Q8>(kreg, vreg, sreg, kp, vp, a.ks, a.vs, rows,
-                               t0 + TT, vl);
+                               t0 + TT, hi);
 
     for (int e = tid; e < rep * TT; e += NTHREADS) {
       const int r = e / TT, j = e % TT;
@@ -212,7 +245,7 @@ __global__ void __launch_bounds__(NTHREADS)
         s = fmaf(x.w, k4.w, s);
       }
       if constexpr (Q8) s *= kss[j];       // s = (q . k8) * ks
-      S[e] = t0 + j < vl ? s : -INFINITY;
+      S[e] = t0 + j < hi ? s : -INFINITY;
     }
     __syncthreads();
 
@@ -253,17 +286,110 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
   }
-  __syncthreads();  // lrow is final
+  __syncthreads();  // mrow and lrow are final
 
-  T* out = static_cast<T*>(a.out);
+  if constexpr (Split) {
+    float* part =
+        a.ws + (((int64_t)b * a.K + kh) * ns + blockIdx.x) * rep * (D + 2);
 #pragma unroll
-  for (int i = 0; i < MAX_OUT; ++i) {
-    const int o = tid + i * NTHREADS;
-    if (o < nout) {
-      const float lr = lrow[o / D];
-      out[qoff + o] = from_float<T>(lr > 0.f ? acc[i] / lr : 0.f);
+    for (int i = 0; i < MAX_OUT; ++i) {
+      const int o = tid + i * NTHREADS;
+      if (o < nout) part[(o / D) * (D + 2) + o % D] = acc[i];
+    }
+    for (int r = tid; r < rep; r += NTHREADS) {
+      part[r * (D + 2) + D] = mrow[r];
+      part[r * (D + 2) + D + 1] = lrow[r];
+    }
+  } else {
+    T* out = static_cast<T*>(a.out);
+#pragma unroll
+    for (int i = 0; i < MAX_OUT; ++i) {
+      const int o = tid + i * NTHREADS;
+      if (o < nout) {
+        const float lr = lrow[o / D];
+        out[qoff + o] = from_float<T>(lr > 0.f ? acc[i] / lr : 0.f);
+      }
     }
   }
+}
+
+// Pass 2: block (o-chunk, kh, b) merges, for NTHREADS of the rep * D
+// outputs of kv head kh, batch row b (one a thread), the partials of the
+// splits below ceil(vl / SPLIT) in ascending order: M = max_s m_s,
+// w_s = exp(m_s - M), out = sum_s w_s acc_s / sum_s w_s l_s in q's dtype.
+// The partials are read MERGE_CHUNK splits at a time, every load of a
+// chunk issued before any is used: one round trip a chunk for M, one for
+// the sums. Each element has one writer and a fixed order, so two
+// launches agree bit for bit. A row with vl = 0 has no split and writes
+// zeros (JAX's safe_l); a partial with m = -inf (none can be below
+// ceil(vl / SPLIT)) weighs 0, not NaN.
+constexpr int MERGE_CHUNK = 16;
+
+template <typename T, typename Rows, int D>
+__global__ void __launch_bounds__(NTHREADS)
+    decode_merge_kernel(const Args a, int ns) {
+  const int kh = blockIdx.y, b = blockIdx.z, rep = a.H / a.K;
+  const int o = blockIdx.x * NTHREADS + threadIdx.x;
+  if (o >= rep * D) return;
+  const int vl = max(0, min(a.valid_len[b],
+                            capacity(rows_of<Rows>(a, b, kh), a)));
+  const int nsplit = (vl + SPLIT - 1) / SPLIT;
+  const int64_t stride = (int64_t)rep * (D + 2);   // one split's rows
+  // this output's row of split 0; its split s lies s * stride further
+  const float* row = a.ws + ((int64_t)b * a.K + kh) * ns * stride +
+                     (o / D) * (D + 2);
+  float M = -INFINITY;
+  for (int s0 = 0; s0 < nsplit; s0 += MERGE_CHUNK) {
+    float mv[MERGE_CHUNK];
+#pragma unroll
+    for (int j = 0; j < MERGE_CHUNK; ++j)
+      mv[j] = s0 + j < nsplit ? row[(s0 + j) * stride + D] : -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MERGE_CHUNK; ++j) M = fmaxf(M, mv[j]);
+  }
+  float num = 0.f, den = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += MERGE_CHUNK) {
+    float mv[MERGE_CHUNK], lv[MERGE_CHUNK], av[MERGE_CHUNK];
+#pragma unroll
+    for (int j = 0; j < MERGE_CHUNK; ++j) {
+      mv[j] = -INFINITY;
+      lv[j] = av[j] = 0.f;
+      if (s0 + j < nsplit) {
+        const float* p = row + (s0 + j) * stride;
+        mv[j] = p[D];
+        lv[j] = p[D + 1];
+        av[j] = p[o % D];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MERGE_CHUNK; ++j) {
+      const float w = mv[j] > -INFINITY ? expf(mv[j] - M) : 0.f;
+      num = fmaf(w, av[j], num);
+      den = fmaf(w, lv[j], den);
+    }
+  }
+  const int64_t qoff = ((int64_t)b * a.H + (int64_t)kh * rep) * D;
+  static_cast<T*>(a.out)[qoff + o] =
+      from_float<T>(den > 0.f ? num / den : 0.f);
+}
+
+// The split walk's two launches on one stream; ns = ceil(capacity /
+// SPLIT) partials a (kv head, batch row), as the wrapper sized a.ws.
+template <typename T, typename C, typename Rows, int D>
+int launch_split(const Args& a, int B, size_t smem, cudaStream_t stream) {
+  const int64_t ns = ((int64_t)a.nb * a.S + SPLIT - 1) / SPLIT;
+  if (a.ws == nullptr || a.K > 65535 || ns > INT32_MAX)
+    return MXTT_BAD_ARGUMENT;
+  int rc = allow_smem(decode_attention_kernel<T, C, Rows, D, true>, smem);
+  if (rc) return rc;
+  decode_attention_kernel<T, C, Rows, D, true>
+      <<<dim3((unsigned)ns, a.K, B), NTHREADS, smem, stream>>>(a, (int)ns);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int nblk = (a.H / a.K * D + NTHREADS - 1) / NTHREADS;
+  decode_merge_kernel<T, Rows, D>
+      <<<dim3(nblk, a.K, B), NTHREADS, 0, stream>>>(a, (int)ns);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename C, typename Rows, int D>
@@ -271,11 +397,16 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   const int rep = a.H / a.K;
   if (rep * D > NTHREADS * MAX_OUT) return MXTT_BAD_ARGUMENT;
   const size_t smem = smem_bytes<D, std::is_same<C, int8_t>::value>(rep);
-  const int rc = allow_smem(decode_attention_kernel<T, C, Rows, D>, smem);
-  if (rc) return rc;
-  decode_attention_kernel<T, C, Rows, D>
-      <<<dim3(a.K, B), NTHREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<Rows, ContigRows>::value) {
+    return launch_split<T, C, Rows, D>(a, B, smem, stream);
+  } else {
+    const int rc =
+        allow_smem(decode_attention_kernel<T, C, Rows, D, false>, smem);
+    if (rc) return rc;
+    decode_attention_kernel<T, C, Rows, D, false>
+        <<<dim3(a.K, B), NTHREADS, smem, stream>>>(a, 1);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, typename C, typename Rows>
@@ -310,20 +441,22 @@ int dispatch(int dtype, int D, const Args& a, int B, void* stream) {
 }  // namespace
 
 extern "C" int mxtt_contig_decode(void* out, const void* q, const void* k,
-                                  const void* v, const int* valid_len, int B,
-                                  int H, int K, int D, int S, float scale,
-                                  int dtype, void* stream) {
+                                  const void* v, const int* valid_len,
+                                  float* ws, int B, int H, int K, int D, int S,
+                                  float scale, int dtype, void* stream) {
   const Args a{out, q, k, v, nullptr, nullptr, nullptr, valid_len,
-               H,   K, S, 1, scale};
+               H,   K, S, 1, scale,   ws};
   return dispatch<false, ContigRows>(dtype, D, a, B, stream);
 }
 
 extern "C" int mxtt_contig_decode_q8(void* out, const void* q, const void* k8,
                                      const float* ks, const void* v8,
                                      const float* vs, const int* valid_len,
-                                     int B, int H, int K, int D, int S,
-                                     float scale, int dtype, void* stream) {
-  const Args a{out, q, k8, v8, ks, vs, nullptr, valid_len, H, K, S, 1, scale};
+                                     float* ws, int B, int H, int K, int D,
+                                     int S, float scale, int dtype,
+                                     void* stream) {
+  const Args a{out, q, k8, v8, ks, vs, nullptr, valid_len, H, K, S, 1, scale,
+               ws};
   return dispatch<true, ContigRows>(dtype, D, a, B, stream);
 }
 

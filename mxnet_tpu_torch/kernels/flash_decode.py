@@ -20,7 +20,10 @@ masks cache positions >= valid_len[b]; out (B, H, d) in q's dtype. Paged
 caches are read through block_tables (B, nb) int32, physical block ids
 in logical order, block 0 being the server's scratch block. An int8 cache
 holds per-token symmetric codes with fp32 scales (B, K, S, 1) or
-(N, K, bs, 1), made by `quantize_kv`.
+(N, K, bs, 1), made by `quantize_kv`. The contiguous kernels split each
+row's walk over SPLIT-token ranges across blocks and merge the ranges'
+partial softmaxes in a second launch of the same call, through an fp32
+workspace the wrapper sizes from S alone.
 
 Window attention (chunked prefill, speculative verify) takes q
 (B, W, H, d) and valid_lens (B, W): each window row attends the cache
@@ -61,12 +64,13 @@ __all__ = ["flash_decode", "flash_decode_quantized", "flash_decode_paged",
            "reference_window_attention", "reference_paged_window_attention"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: out, q, k, v, valid_len, B, H, K, d, S, scale, dtype, stream
+#: out, q, k, v, valid_len, workspace, B, H, K, d, S, scale, dtype, stream
 _CONTIG = _build.CudaKernel("mxtt_contig_decode",
-                            [_P] * 5 + [_I] * 5 + [_F, _I, _P])
-#: out, q, k8, ks, v8, vs, valid_len, B, H, K, d, S, scale, dtype, stream
+                            [_P] * 6 + [_I] * 5 + [_F, _I, _P])
+#: out, q, k8, ks, v8, vs, valid_len, workspace, B, H, K, d, S, scale,
+#: dtype, stream
 _CONTIG_Q8 = _build.CudaKernel("mxtt_contig_decode_q8",
-                               [_P] * 7 + [_I] * 5 + [_F, _I, _P])
+                               [_P] * 8 + [_I] * 5 + [_F, _I, _P])
 #: out, q, k, v, block_tables, valid_len, B, H, K, d, bs, nb, scale,
 #: dtype, stream
 _PAGED = _build.CudaKernel("mxtt_paged_decode",
@@ -94,6 +98,10 @@ TC_REPS = (1, 2, 4, 8)
 TC_BLOCK_SIZES = (8, 16, 32, 64)
 #: the decode kernels' threads own rep * d <= 1024 outputs of one kv head
 MAX_REP_DIM = 1024
+#: tokens a block of the contiguous decode's split walk owns: the
+#: workspace holds ceil(S / SPLIT) partials a (batch row, kv head). It
+#: mirrors SPLIT in csrc/decode_attention.cu, which a test holds equal.
+SPLIT = 64
 
 
 # -- plain versions ----------------------------------------------------------
@@ -279,6 +287,16 @@ def _scale(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
 
+def _split_workspace(q, K, S):
+    """The contiguous kernels' fp32 partials (B, K, ceil(S / SPLIT), rep,
+    d + 2): acc, the running max and sum of each token range. Sized from
+    S alone: reading valid_len here would synchronise the host with the
+    card once a layer."""
+    B, H, d = q.shape
+    return torch.empty((B, K, -(-S // SPLIT), H // K, d + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def flash_decode(q, k_cache, v_cache, valid_len, scale=None):
     """Decode attention over contiguous (B, K, S, d) caches."""
     scale = _scale(q, scale)
@@ -286,7 +304,9 @@ def flash_decode(q, k_cache, v_cache, valid_len, scale=None):
         return reference_decode_attention(q, k_cache, v_cache, valid_len,
                                           scale)
     sizes = _check(q, (k_cache, v_cache), (), valid_len)
-    return _launch(_CONTIG, q, (k_cache, v_cache, valid_len), sizes, scale)
+    ws = _split_workspace(q, sizes[2], sizes[4])
+    return _launch(_CONTIG, q, (k_cache, v_cache, valid_len, ws), sizes,
+                   scale)
 
 
 def flash_decode_quantized(q, k8, ks, v8, vs, valid_len, scale=None):
@@ -297,7 +317,9 @@ def flash_decode_quantized(q, k8, ks, v8, vs, valid_len, scale=None):
         return reference_decode_quantized(q, k8, ks, v8, vs, valid_len,
                                           scale)
     sizes = _check(q, (k8, v8), (ks, vs), valid_len)
-    return _launch(_CONTIG_Q8, q, (k8, ks, v8, vs, valid_len), sizes, scale)
+    ws = _split_workspace(q, sizes[2], sizes[4])
+    return _launch(_CONTIG_Q8, q, (k8, ks, v8, vs, valid_len, ws), sizes,
+                   scale)
 
 
 def flash_decode_paged(q, k_pages, v_pages, block_tables, valid_len,

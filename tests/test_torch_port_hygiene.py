@@ -200,6 +200,92 @@ def test_decode_routes_raise_where_autograd_needs_a_gradient(route,
     assert len(stub_launch) == 1 and out.grad_fn is None
 
 
+@pytest.mark.parametrize("S", [24, 64, 65, 544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,symbol", [
+    ("flash_decode", "mxtt_contig_decode"),
+    ("flash_decode_quantized", "mxtt_contig_decode_q8")])
+def test_contiguous_decode_launches_once_with_a_split_workspace(
+        route, symbol, dtype, S, monkeypatch):
+    """One call, one counted launch (the split walk and its merge are one
+    C call) with every C argument but the stream, and an fp32 workspace
+    of (B, K, ceil(S / SPLIT), rep, d + 2) sized from S alone: valid_len
+    lies on `meta`, where any copy to the host raises."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    launched, spaces = [], []
+
+    def launch(kernel, device, *args):
+        launched.append((kernel.symbol, len(args) + 1 == len(kernel.argtypes)))
+        kernel.launches += 1
+
+    def workspace(q, K, S_):
+        spaces.append(real(q, K, S_))
+        return spaces[-1]
+    real = fd._split_workspace
+    monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(fd, "_split_workspace", workspace)
+    _build.reset_launch_counts()
+    B, H, K, d = 3, 8, 2, 128
+    q = torch.empty(B, H, d, dtype=dtype, device=META)
+    vl = torch.empty(B, dtype=torch.int32, device=META)
+    if route == "flash_decode":
+        cache = (torch.empty(B, K, S, d, dtype=dtype, device=META),) * 2
+    else:
+        c8 = torch.empty(B, K, S, d, dtype=torch.int8, device=META)
+        sc = torch.empty(B, K, S, 1, device=META)
+        cache = (c8, sc, c8, sc)
+    with pytest.raises(NotImplementedError):
+        vl.tolist()                      # meta: no host copy
+    out = getattr(fd, route)(q, *cache, vl)
+    assert launched == [(symbol, True)]
+    assert _build.launch_counts()[symbol] == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    assert len(spaces) == 1 and spaces[0].dtype == torch.float32
+    assert tuple(spaces[0].shape) == (B, K, -(-S // fd.SPLIT), H // K, d + 2)
+
+
+@pytest.mark.parametrize("route,bad", [
+    (route, bad)
+    for route in ("flash_decode", "flash_decode_quantized")
+    for bad in ("q_dtype", "cache_dtype", "cache_shape", "lengths_shape",
+                "lengths_dtype", "lengths_rows", "k_misaligned", "v_strided",
+                "rep_too_wide")]
+    + [("flash_decode_quantized", "scale_shape"),
+       ("flash_decode_quantized", "scale_dtype")])
+def test_contiguous_decode_raises_before_any_launch(route, bad, stub_launch):
+    """What the split kernels cannot take (a dtype, a shape, a cache off a
+    16-byte boundary or not contiguous, rep * d past MAX_REP_DIM) raises
+    before any launch: no detour to the plain version."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    B, K, S, d = 2, 2, 40, 128
+    H = 18 if bad == "rep_too_wide" else 8     # rep * d = 1152 > 1024
+    q = torch.empty(B, H, d, device=META,
+                    dtype=torch.float16 if bad == "q_dtype" else torch.float32)
+    q8 = route == "flash_decode_quantized"
+    cdt = torch.int8 if q8 else torch.float32
+    if bad == "cache_dtype":
+        cdt = torch.float32 if q8 else torch.bfloat16
+    shape = (B, K, S, d + 16 if bad == "cache_shape" else d)
+    k = torch.empty(shape, device=META, dtype=cdt)
+    if bad == "k_misaligned":   # one element past a 16-byte boundary
+        n = int(np.prod(shape))
+        k = torch.empty(n + 1, device=META, dtype=cdt)[1:].view(shape)
+    v = torch.empty(B, K, d, S, device=META, dtype=cdt).transpose(2, 3) \
+        if bad == "v_strided" else torch.empty(shape, device=META, dtype=cdt)
+    vl = torch.empty({"lengths_shape": (B, 1), "lengths_rows": (B + 1,)}
+                     .get(bad, (B,)), device=META,
+                     dtype=torch.int64 if bad == "lengths_dtype"
+                     else torch.int32)
+    sc = torch.empty(B, K, S + (bad == "scale_shape"), 1, device=META,
+                     dtype=torch.bfloat16 if bad == "scale_dtype"
+                     else torch.float32)
+    args = (k, sc, v, sc, vl) if q8 else (k, v, vl)
+    with pytest.raises((ValueError, TypeError)):
+        getattr(fd, route)(q, *args)
+    assert stub_launch == []
+
+
 @pytest.mark.parametrize("route", ["rmsnorm", "layernorm",
                                    "flash_attention", "softmax_ce"])
 def test_training_routes_keep_the_graph_on_the_card(route, stub_launch):
